@@ -1,0 +1,83 @@
+"""Typed configuration tree for the inference path.
+
+Own copy of the dataclasses in `eprecon_tpu/config.py` that the serving
+path reads (reference: config/default.py, config/train.yaml). Training-only
+fields (loss weights, sample caps, remat, the back-projection adjoint),
+sparse-engine capacities and YAML loading come with the slices that use
+them.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Tuple
+
+
+@dataclass(frozen=True)
+class Backbone2DConfig:
+    # reference: config/default.py:65-66 ('fpn-mnas-1' -> alpha=1.0)
+    arc: str = "fpn-mnas-1"
+
+    @property
+    def alpha(self) -> float:
+        return float(self.arc.split("-")[-1])
+
+
+@dataclass(frozen=True)
+class PanopticConfig:
+    """Panoptic decoder hyperparameters (reference: models/neucon_network.py:60-97)."""
+    num_classes: int = 20
+    num_queries: int = 80
+    hidden_dim: int = 48
+    nheads: int = 8
+    dec_layers: int = 6
+    dim_feedforward_mult: int = 4
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    n_vox: Tuple[int, int, int] = (96, 96, 96)
+    voxel_size: float = 0.04
+    n_layer: int = 3
+    thresholds: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    # BGR pixel mean/std (reference config/default.py:60-61)
+    pixel_mean: Tuple[float, float, float] = (103.53, 116.28, 123.675)
+    pixel_std: Tuple[float, float, float] = (1.0, 1.0, 1.0)
+    backbone2d: Backbone2DConfig = field(default_factory=Backbone2DConfig)
+    panoptic: PanopticConfig = field(default_factory=PanopticConfig)
+    # occupancy initialization (reference models/neucon_network.py:239-244)
+    init_stage: int = 1
+    min_view_number: int = 2
+    occ_init_threshold: float = 0.3
+    # fragment flagged not-ok below these active-voxel counts
+    min_init_voxels: int = 1000
+    min_stage_voxels: int = 500
+    # static voxel capacities per stage (coarse->fine) of the compacted
+    # panoptic voxel sets
+    voxel_capacity: Tuple[int, int, int] = (16384, 65536, 131072)
+    # dense global scene volume extent in FINEST-level voxels; coarser
+    # levels are this / 2^scale. (256, 256, 128) @ 4 cm = 10.2 x 10.2 x 5.1 m
+    global_extent: Tuple[int, int, int] = (256, 256, 128)
+    # "window_union": anchor the global volume at the scene's minimum
+    # fragment-window origin when the caller knows it; else at vol_origin
+    scene_anchor: str = "window_union"
+    # margin (finest voxels) the global volume keeps below a scene origin
+    origin_margin: int = 32
+    # storage dtype of the recurrent global feature volumes
+    global_dtype: str = "bfloat16"
+    # round float images to uint8 before the forward (the JAX package's
+    # host->device transfer format; the cast to f32 happens in normalize)
+    transfer_images_uint8: bool = False
+
+    @property
+    def n_scales(self) -> int:
+        return len(self.thresholds) - 1
+
+
+@dataclass(frozen=True)
+class Config:
+    seed: int = 1
+    model: ModelConfig = field(default_factory=ModelConfig)
+
+
+def default_config() -> Config:
+    return Config()

@@ -1,0 +1,363 @@
+"""EPRecon core network: occupancy init -> coarse-to-fine TSDF -> panoptic
+(port of eprecon_tpu/models/eprecon.py, inference path; reference
+models/neucon_network.py:25-624 and models/neuralrecon.py:19-86).
+
+Every per-stage computation runs on the fragment's dense window (24^3 /
+48^3 / 96^3) with an active-voxel mask; sparse capacity-padded sets appear
+only at the panoptic stage. Batch = 1 fragment. The dtype plan is the JAX
+package's: back-projected volumes bf16, 3D convs bf16, tsdf/occ heads f32,
+panoptic transfer and mask-feature LayerNorm bf16. BatchNorm uses batch
+statistics at inference (the reference's eval semantics).
+
+Channel plan (alpha=1):
+  ch_init     = [80, 40, 24]     back-projected image feats per stage
+  ch_in       = [80, 138, 74]    U-Net input (volume ++ upsampled prev)
+  channels    = [96, 48, 24]     U-Net output (voxel branch)
+  gru_channels= [176, 88, 48]    voxel ++ img branches fused by the GRU
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, NamedTuple, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from eprecon_tpu_torch.config import ModelConfig
+from eprecon_tpu_torch.models import dense3d
+from eprecon_tpu_torch.models.backbone import MnasMulti, get_depths
+from eprecon_tpu_torch.models.blocks import Linear4xTrans
+from eprecon_tpu_torch.models.dense3d import SubMConv3dDense
+from eprecon_tpu_torch.models.gru_fusion import DenseGlobalLevel, DenseGRUFusion
+from eprecon_tpu_torch.models.layers import LayerNorm, init_module, mask3
+from eprecon_tpu_torch.models.occupancy_init import OccupancyInitialization
+from eprecon_tpu_torch.models.panoptic.decoder import MaskedTransformerDecoder
+from eprecon_tpu_torch.models.unet_dense import DenseUNet
+from eprecon_tpu_torch.ops import sparse as sp
+from eprecon_tpu_torch.ops.back_project import back_project_window
+from eprecon_tpu_torch.ops.grid import dense_coords
+
+BF16 = torch.bfloat16
+
+
+class FragmentInputs(NamedTuple):
+    """One fragment's geometry (batch=1). rel_origins are host integers
+    (window origin per stage in level units, relative to the global
+    volume), so window slicing needs no device read-back."""
+    proj_matrices: torch.Tensor           # [V, n_scales, 4, 4] world->pixel
+    vol_origin_partial: torch.Tensor      # [3] fragment world origin
+    world_to_aligned_camera: torch.Tensor  # [4, 4]
+    rel_origins: np.ndarray               # [n_stages, 3] int
+
+
+class RecurrentState(NamedTuple):
+    """Cross-fragment state of one scene stream; reset at scene change."""
+    gmaps: Tuple[DenseGlobalLevel, ...]  # per stage (0 = coarse)
+
+
+def channel_plan(cfg: ModelConfig):
+    d = get_depths(cfg.backbone2d.alpha)
+    ch_init = [d[4], d[3], d[2]]                  # [80, 40, 24]
+    channels = [96, 48, 24]
+    ch_in = [ch_init[0], channels[0] + ch_init[1] + 2,
+             channels[1] + ch_init[2] + 2]        # [80, 138, 74]
+    return ch_init, channels, ch_in
+
+
+def gru_channel_plan(cfg: ModelConfig):
+    ch_init, channels, _ = channel_plan(cfg)
+    return [c + i for c, i in zip(channels, ch_init)]  # [176, 88, 48]
+
+
+def make_recurrent_state(cfg: ModelConfig, device=None) -> RecurrentState:
+    gru_ch = gru_channel_plan(cfg)
+    dtype = BF16 if cfg.global_dtype == "bfloat16" else torch.float32
+    gmaps = []
+    for i in range(cfg.n_layer):
+        interval = 2 ** (cfg.n_scales - i)
+        extent = tuple(v // interval for v in cfg.global_extent)
+        gmaps.append(DenseGlobalLevel.empty(extent, gru_ch[i], dtype, device))
+    return RecurrentState(tuple(gmaps))
+
+
+class SparseConvResidual(nn.Module):
+    """SubM conv + ReLU + residual + LN on a masked dense window, bf16
+    (reference models/modules.py:469-482)."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.SubMConv3dDense_0 = SubMConv3dDense(features, features)
+        self.LayerNorm_0 = LayerNorm(features, dtype=BF16)
+
+    def forward(self, vol, mask):
+        out = vol + F.relu(self.SubMConv3dDense_0(vol, mask))
+        return mask3(self.LayerNorm_0(out), mask)
+
+
+def nearest_fine_in_cell(row_table: torch.Tensor, coarse_coords: torch.Tensor,
+                         stride: int) -> torch.Tensor:
+    """Nearest active fine voxel per coarse voxel via cell alignment: the
+    candidates of a coarse voxel's stride^3 cell, ordered by distance to the
+    cell corner; the first present one wins.
+
+    row_table [X, Y, Z] int fine-voxel row per cell (-1 empty);
+    coarse_coords [K, 3] fine units. Returns [K] rows (0 where none)."""
+    x, y, z = row_table.shape
+    s = stride
+    t = row_table.reshape(x // s, s, y // s, s, z // s, s)
+    t = t.permute(0, 2, 4, 1, 3, 5).reshape(-1, s ** 3)
+    deltas = np.stack(np.meshgrid(*([np.arange(s)] * 3), indexing="ij"),
+                      -1).reshape(-1, 3)
+    order = np.argsort((deltas ** 2).sum(1), kind="stable")
+    t = t[:, torch.as_tensor(order, device=t.device)]
+    p = coarse_coords.long() // s
+    flat = ((p[:, 0] * (y // s) + p[:, 1]) * (z // s) + p[:, 2])
+    cand = t[flat.clamp(0, t.shape[0] - 1)]
+    first = (cand >= 0).int().argmax(dim=1)
+    return cand.gather(1, first[:, None])[:, 0].clamp(min=0)
+
+
+def aligned_coord_features(dim: Tuple[int, int, int], interval: int,
+                           voxel_size: float, origin_partial: torch.Tensor,
+                           world_to_aligned: torch.Tensor) -> torch.Tensor:
+    """Aligned-camera coordinates of every window voxel, [X, Y, Z, 3]
+    (meters / window extent), injected as U-Net input features."""
+    coords = dense_coords(dim, origin_partial.device).float() * interval
+    world = coords * voxel_size + origin_partial
+    wh = torch.cat([world, torch.ones_like(world[..., :1])], dim=-1)
+    aligned = torch.einsum("ij,xyzj->xyzi", world_to_aligned[:3], wh)
+    return aligned / (max(dim) * interval * voxel_size)
+
+
+class EPReconCore(nn.Module):
+    """The per-fragment pipeline (reference NeuConNet.forward), batch=1."""
+
+    def __init__(self, cfg: ModelConfig, use_running_average: bool = False,
+                 generator: torch.Generator = None):
+        super().__init__()
+        self.cfg = cfg
+        ura = use_running_average
+        ch_init, channels, ch_in = channel_plan(cfg)
+        gru_ch = gru_channel_plan(cfg)
+        d = get_depths(cfg.backbone2d.alpha)
+        pan = cfg.panoptic
+        self.initialization = OccupancyInitialization((d[2], d[3], d[4]),
+                                                      use_running_average=ura)
+        for i in range(cfg.n_layer):
+            setattr(self, f"sp_conv_{i}",
+                    DenseUNet(ch_in[i] + 3, 1.0 / 2 ** i, ura))
+            setattr(self, f"gru_fusion_{i}",
+                    DenseGRUFusion(channels[i], ch_init[i]))
+            setattr(self, f"tsdf_pred_{i}", Linear4xTrans(channels[i], 1))
+            setattr(self, f"occ_pred_{i}", Linear4xTrans(channels[i], 1))
+        for p in range(3):
+            setattr(self, f"panoptic_pred_{p}",
+                    Linear4xTrans(gru_ch[p], pan.hidden_dim, dtype=BF16))
+        for mi in range(3):
+            setattr(self, f"mask_feat_{mi}", SparseConvResidual(pan.hidden_dim))
+        self.panoptic = MaskedTransformerDecoder(
+            num_classes=pan.num_classes, hidden_dim=pan.hidden_dim,
+            num_queries=pan.num_queries, num_heads=pan.nheads,
+            dim_feedforward=pan.hidden_dim * pan.dim_feedforward_mult,
+            dec_layers=pan.dec_layers, generator=generator)
+
+    def forward(self, features2d: Sequence[torch.Tensor],
+                features_occ_pano: Sequence[torch.Tensor],
+                frag: FragmentInputs, state: RecurrentState,
+                debug_outputs: bool = False):
+        """features2d / features_occ_pano: 3 tensors [V, H_s, W_s, C_s]
+        fine -> coarse, from the reconstruction and occupancy/panoptic
+        backbones. Returns (outputs dict, new RecurrentState); the global
+        maps in `state` are updated in place."""
+        cfg = self.cfg
+        n_scales = cfg.n_scales
+        ch_init, channels, _ = channel_plan(cfg)
+        outputs: Dict[str, Any] = {}
+        f2d = [f[:, None] for f in features2d]   # [V, 1, H, W, C]
+        fop = [f[:, None] for f in features_occ_pano]
+        origin_b = frag.vol_origin_partial[None, :]
+
+        # occupancy initialization (reference neucon_network.py:239-342)
+        init_interval = 2 ** (n_scales - cfg.init_stage)
+        init_scale = n_scales - cfg.init_stage
+        init_shape = tuple(v // init_interval for v in cfg.n_vox)
+        occ_logits, init_mask, _ = self.initialization(
+            f2d, origin_b, cfg.voxel_size,
+            frag.proj_matrices[:, None, init_scale], init_shape,
+            init_interval, cfg.min_view_number)
+        occ_logits, init_mask = occ_logits[0], init_mask[0]
+        frag_ok = init_mask.sum() >= cfg.min_init_voxels
+        if debug_outputs:
+            outputs["occ_init_logits"] = occ_logits
+            outputs["occ_init_mask"] = init_mask
+
+        occupied = init_mask & (torch.sigmoid(occ_logits) > cfg.occ_init_threshold)
+        stage_mask = dense3d.maxpool3d(occupied, 2 ** cfg.init_stage)
+        stage_mask = dense3d.dilate(dense3d.dilate(dense3d.erode(stage_mask)))
+
+        # coarse-to-fine surface reconstruction (reference :347-511)
+        new_gmaps: List[DenseGlobalLevel] = []
+        pano_feats_dense, pano_masks, pano_scores = [], [], []
+        prev_feats = None
+        for i in range(cfg.n_layer):
+            interval = 2 ** (n_scales - i)
+            scale = n_scales - i
+            dim = tuple(v // interval for v in cfg.n_vox)
+            if i > 0:
+                stage_mask = dense3d.upsample_nearest2(stage_mask[..., None])[..., 0]
+                prev_feats = dense3d.upsample_nearest2(prev_feats)
+
+            volume, count = back_project_window(
+                dim, interval, origin_b, cfg.voxel_size, fop[scale],
+                frag.proj_matrices[:, None, scale])
+            if i == 0:
+                stage_mask = stage_mask & (count >= cfg.min_view_number)
+            if debug_outputs:
+                outputs[f"bp_vol_{i}"] = volume
+                outputs[f"bp_count_{i}"] = count
+                outputs[f"stage_entry_{i}"] = stage_mask
+
+            feat = volume if prev_feats is None else torch.cat(
+                [volume, prev_feats.to(BF16)], dim=-1)
+            feat = torch.where(stage_mask[..., None], feat, 0)
+            ac = aligned_coord_features(dim, interval, cfg.voxel_size,
+                                        frag.vol_origin_partial,
+                                        frag.world_to_aligned_camera)
+            feat3d = getattr(self, f"sp_conv_{i}")(
+                torch.cat([feat, ac.to(BF16)], dim=-1), stage_mask)
+            feat_all = torch.cat([feat3d.to(BF16), volume], dim=-1)
+
+            fused, union, gmap = getattr(self, f"gru_fusion_{i}")(
+                feat_all, stage_mask, state.gmaps[i], frag.rel_origins[i])
+            new_gmaps.append(gmap)
+            if debug_outputs:
+                outputs[f"stage_unet_{i}"] = feat3d
+                outputs[f"stage_fused_{i}"] = fused
+                outputs[f"stage_union_{i}"] = union
+
+            # f32 heads: in bf16 their gradient noise collapses occupancy
+            # selection during training (see the JAX module)
+            feat_v = fused[..., :channels[i]].float()
+            tsdf = getattr(self, f"tsdf_pred_{i}")(feat_v)[..., 0]
+            occ = getattr(self, f"occ_pred_{i}")(feat_v)[..., 0]
+
+            occupancy = (occ > cfg.thresholds[i]) & union
+            n_occ = occupancy.sum()
+            frag_ok = frag_ok & (n_occ >= cfg.min_stage_voxels)
+            outputs[f"n_occ_{i}"] = n_occ
+            if debug_outputs:
+                outputs[f"stage_tsdf_{i}"] = tsdf
+                outputs[f"stage_occ_{i}"] = occ
+                outputs[f"occupancy_{i}"] = occupancy
+
+            pano_feats_dense.append(torch.where(occupancy[..., None], fused, 0.0))
+            pano_masks.append(occupancy)
+            pano_scores.append(occ)
+            if i == cfg.n_layer - 1:
+                outputs["tsdf_window"] = torch.where(occupancy, tsdf, 1.0)
+                outputs["occupancy"] = occupancy
+            else:
+                stage_mask = occupancy
+                prev_feats = torch.cat([feat_v, tsdf[..., None], occ[..., None]],
+                                       dim=-1)
+                prev_feats = torch.where(occupancy[..., None], prev_feats, 0.0)
+        outputs["frag_ok"] = frag_ok
+        new_state = RecurrentState(tuple(new_gmaps))
+
+        # panoptic stage (reference :516-622): coarse voxels must sit on a
+        # fine voxel's cell -> max-pool of the fine mask
+        fine_mask = pano_masks[2]
+        pano_masks[1] = pano_masks[1] & dense3d.maxpool3d(fine_mask, 2)
+        pano_masks[0] = pano_masks[0] & dense3d.maxpool3d(fine_mask, 4)
+        lvl_dense = []
+        for p in range(3):
+            f = getattr(self, f"panoptic_pred_{p}")(pano_feats_dense[p])
+            lvl_dense.append(torch.where(pano_masks[p][..., None], f, 0))
+        mf = lvl_dense[2]
+        for mi in range(3):
+            mf = getattr(self, f"mask_feat_{mi}")(mf, fine_mask)
+
+        caps = cfg.voxel_capacity
+        pano_ch = cfg.panoptic.hidden_dim
+        lvl_feats, lvl_coords, lvl_valid = [], [], []
+        overflow = torch.zeros((), dtype=torch.int32, device=fine_mask.device)
+        for p in range(2):
+            stride = 2 ** (n_scales - p)
+            svx, ovf = sp.dense_to_sparse(lvl_dense[p], pano_masks[p], caps[p],
+                                          score=pano_scores[p])
+            lvl_feats.append(svx.feats)
+            lvl_coords.append(svx.coords[:, 1:] * stride)
+            lvl_valid.append(svx.valid)
+            overflow = overflow + ovf
+        n_fine = int(np.prod(cfg.n_vox))
+        fine_coords = torch.cat([
+            torch.zeros(n_fine, 1, dtype=torch.int32, device=fine_mask.device),
+            dense_coords(cfg.n_vox, fine_mask.device).reshape(-1, 3)], dim=1)
+        fine_sv, (fine_feats, fine_tsdf), ovf = sp.compact(
+            pano_masks[2].reshape(-1), fine_coords, caps[2],
+            torch.cat([lvl_dense[2], mf], dim=-1).reshape(n_fine, -1),
+            outputs["tsdf_window"].reshape(n_fine, 1),
+            score=pano_scores[2].reshape(-1))
+        lvl_feats.append(fine_feats[:, :pano_ch])
+        lvl_coords.append(fine_sv.coords[:, 1:])
+        lvl_valid.append(fine_sv.valid)
+        mask_feats = fine_feats[:, pano_ch:2 * pano_ch]
+        outputs["coords"] = fine_sv.coords
+        outputs["tsdf"] = fine_tsdf[:, 0]
+        outputs["valid"] = fine_sv.valid
+        outputs["overflow"] = overflow + ovf
+
+        k_fine = fine_sv.coords.shape[0]
+        fine_rows = sp.sparse_to_dense(
+            fine_sv.coords[:, 1:],
+            torch.arange(k_fine, dtype=torch.float32, device=fine_mask.device)[:, None],
+            fine_sv.valid, cfg.n_vox, default=-1.0)[..., 0].long()
+        mask_idx = [nearest_fine_in_cell(fine_rows, lvl_coords[0], 4),
+                    nearest_fine_in_cell(fine_rows, lvl_coords[1], 2),
+                    torch.arange(k_fine, device=fine_mask.device)]
+        dec_out = self.panoptic(lvl_feats, lvl_coords, lvl_valid, mask_feats,
+                                tuple(cfg.n_vox), mask_idx)
+        outputs["pred_logits"] = dec_out.pred_logits[-1]
+        outputs["pred_masks"] = dec_out.pred_masks[-1]
+        outputs["panoptic_coords"] = fine_sv.coords
+        outputs["panoptic_valid"] = fine_sv.valid
+        return outputs, new_state
+
+
+class EPRecon(nn.Module):
+    """Top module: dual backbones + core (reference models/neuralrecon.py)."""
+
+    def __init__(self, cfg: ModelConfig, use_running_average: bool = False,
+                 seed: int = 0):
+        """Parameters are random from `seed` (Xavier convs and heads, flax's
+        lecun-normal for the other dense layers); load trained or JAX-made
+        weights with convert.variables_to_torch."""
+        super().__init__()
+        self.cfg = cfg
+        gen = torch.Generator().manual_seed(seed)
+        alpha = cfg.backbone2d.alpha
+        self.backbone2d = MnasMulti(alpha, use_running_average)
+        self.backbone_occ_pano = MnasMulti(alpha, use_running_average)
+        self.neucon_net = EPReconCore(cfg, use_running_average, generator=gen)
+        init_module(self, gen)
+        self.register_buffer("pixel_mean", torch.tensor(cfg.pixel_mean),
+                             persistent=False)
+        self.register_buffer("pixel_std", torch.tensor(cfg.pixel_std),
+                             persistent=False)
+
+    def normalize(self, imgs: torch.Tensor) -> torch.Tensor:
+        """BGR mean/std normalisation; uint8 images are cast to f32 first
+        (the JAX package's uint8 transfer path)."""
+        if not imgs.is_floating_point():
+            imgs = imgs.float()
+        return (imgs - self.pixel_mean) / self.pixel_std
+
+    def forward(self, imgs: torch.Tensor, frag: FragmentInputs,
+                state: RecurrentState, debug_outputs: bool = False):
+        """imgs [V, H, W, 3] BGR (float or uint8). Returns (outputs,
+        new_state)."""
+        x = self.normalize(imgs)
+        feats2d = self.backbone2d(x)
+        feats_op = self.backbone_occ_pano(x)
+        return self.neucon_net(feats2d, feats_op, frag, state, debug_outputs)

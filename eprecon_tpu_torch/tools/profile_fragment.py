@@ -1,0 +1,138 @@
+"""Where one fragment's time goes on the GPU.
+
+    python -m eprecon_tpu_torch.tools.profile_fragment [--out chiprun_out/profile_fragment.json]
+
+Serves warm-up fragments through StreamingReconstructor at the default
+config (random weights), then profiles one steady-state fragment with
+torch.profiler. Top-level modules and the post-processing steps are
+wrapped in named ranges through forward hooks (the model code carries no
+instrumentation), so the report gives, per layer, the device time of the
+kernels it launched, plus the device busy share of the fragment and the
+top kernels. Needs CUDA.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile, record_function
+
+from eprecon_tpu_torch.config import default_config
+from eprecon_tpu_torch.data.synthetic import make_fragment, make_scene
+from eprecon_tpu_torch.inference import pipeline
+from eprecon_tpu_torch.inference.pipeline import StreamingReconstructor
+from eprecon_tpu_torch.models.eprecon import EPRecon
+
+
+def _range_hooks(module: torch.nn.Module, names):
+    """Open a record_function range around each named submodule's forward."""
+    handles, open_ranges = [], {}
+    for name in names:
+        sub = module.get_submodule(name)
+
+        def pre(_m, _a, name=name):
+            open_ranges[name] = record_function(f"layer::{name}")
+            open_ranges[name].__enter__()
+
+        def post(_m, _a, _o, name=name):
+            open_ranges.pop(name).__exit__(None, None, None)
+
+        handles += [sub.register_forward_pre_hook(pre),
+                    sub.register_forward_hook(post)]
+    return handles
+
+
+def _wrap(fn, label):
+    def wrapped(*args, **kwargs):
+        with record_function(f"layer::{label}"):
+            return fn(*args, **kwargs)
+    return wrapped
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default="chiprun_out/profile_fragment.json")
+    ap.add_argument("--warmup", type=int, default=2)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_fragment needs CUDA")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    cfg = default_config()
+    m = cfg.model
+    scene = make_scene(0)
+    frags = [make_fragment(n_vox=m.n_vox, voxel_size=m.voxel_size, scene=scene,
+                           start_angle=0.3 * i) for i in range(args.warmup + 1)]
+    model = EPRecon(m, seed=cfg.seed)
+    rec = StreamingReconstructor(cfg, model)
+    layers = (["backbone2d", "backbone_occ_pano", "neucon_net.initialization"]
+              + [f"neucon_net.{p}_{i}" for i in range(m.n_layer)
+                 for p in ("sp_conv", "gru_fusion", "tsdf_pred", "occ_pred")]
+              + [f"neucon_net.panoptic_pred_{p}" for p in range(3)]
+              + [f"neucon_net.mask_feat_{p}" for p in range(3)]
+              + ["neucon_net.panoptic"])
+    _range_hooks(model, layers)
+    pipeline.panoptic_inference = _wrap(pipeline.panoptic_inference,
+                                        "panoptic_inference")
+    pipeline.fuse_tsdf_direct = _wrap(pipeline.fuse_tsdf_direct,
+                                      "fuse_tsdf_direct")
+
+    def feed(d):
+        rec.process_fragment("scene", d["imgs"], d["proj_matrices"],
+                             d["vol_origin_partial"] - 0.5,
+                             d["vol_origin_partial"],
+                             d["world_to_aligned_camera"])
+
+    for d in frags[:-1]:
+        feed(d)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        feed(frags[-1])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    # Layer time: the device time of the kernels launched inside each
+    # host-side range. Busy time: the kernels themselves (device-side
+    # events), leaving out the device-side copies of the range markers.
+    layers_ms: dict = {}
+    per_kernel: dict = {}
+    for e in prof.events():
+        if e.name.startswith("layer::"):
+            if e.device_type == DeviceType.CPU:
+                key = e.name[len("layer::"):]
+                layers_ms[key] = layers_ms.get(key, 0.0) + e.device_time_total / 1e3
+        elif e.device_type == DeviceType.CUDA:
+            ms, calls = per_kernel.get(e.name, (0.0, 0))
+            per_kernel[e.name] = (ms + e.device_time_total / 1e3, calls + 1)
+    kernel_ms = sum(ms for ms, _ in per_kernel.values())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:15]
+    report = dict(card=card, wall_ms=wall_ms, device_kernel_ms=kernel_ms,
+                  device_busy_share=kernel_ms / wall_ms,
+                  layers_device_ms=dict(sorted(layers_ms.items(),
+                                               key=lambda kv: -kv[1])),
+                  top_kernels=[dict(name=name, device_ms=ms, calls=calls)
+                               for name, (ms, calls) in top],
+                  kernel_launches=sum(c for _, c in per_kernel.values()))
+    print(f"card: {card}")
+    print(f"fragment wall {wall_ms:.1f} ms, device kernels {kernel_ms:.1f} ms "
+          f"(busy share {kernel_ms / wall_ms:.2f}), "
+          f"{report['kernel_launches']} device events")
+    for name, ms in report["layers_device_ms"].items():
+        print(f"  {name:34s} {ms:8.2f} ms")
+    for k in report["top_kernels"]:
+        print(f"  {k['device_ms']:8.2f} ms  {k['calls']:5d}x  {k['name'][:90]}")
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(report, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
