@@ -6,9 +6,15 @@
 Phases (any failure exits non-zero before the result line):
   1. build csrc/back_project.cu for sm_90a with nvcc;
   2. at the four back-projection call shapes of a full-width fragment,
-     hold the kernel against its plain PyTorch version on the card and
-     time both, with an F.grid_sample yardstick (library_ms) and the
-     least time the card could take (bound_ms);
+     hold the kernel against its plain PyTorch version on the card, tally
+     its brick-views (staged in shared memory / read from device memory /
+     empty), check that the card holds as many CTAs per SM as the launch
+     plan assumes (CUDA occupancy calculator), and time it
+     (eprecon_tpu_torch/tools/bench_back_project.py):
+     ms is the kernel's device time under torch.profiler with the L2
+     flushed, call_ms the wrapper's time per call, beside the plain
+     version, an F.grid_sample yardstick (library_ms) and the least time
+     the card could take (bound_ms);
   3. serve the main path: StreamingReconstructor at the default config
      (96^3 window at 4 cm, 9 views at 640x480, 80-query 6-layer decoder),
      random weights from a seed, 3 fragments of one scene then 1 of a
@@ -16,104 +22,54 @@ Phases (any failure exits non-zero before the result line):
   4. reference check at tiny size: the same forward on CUDA and on the
      CPU (the CPU port is held against the JAX package by
      tests/test_torch_forward.py).
-Prints the card's name and power limit, a JSON line of kernel results,
+Prints ptxas's registers and spills per kernel instance, the card's name
+and power limit, a JSON line of kernel results,
 and as the last line {"ok": true, "device": {...}}. Full results also go
 to chiprun_out/chip_smoke.json.
 """
 import dataclasses
 import json
-import subprocess
+import re
 import sys
 import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
-F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 TOL = 1e-2                  # kernel vs plain, relative to max(1, |plain|)
 
 
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
+def ptxas_lines(so: Path):
+    """Registers, spills and shared memory of each kernel instance, from
+    the ptxas report kept beside the built library."""
+    from eprecon_tpu_torch import kernels
 
-
-def cuda_ms(fn, iters: int) -> float:
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def yardstick(feats_vchw, proj, world, h, w, variance):
-    """The same function from stock PyTorch calls: projection, one
-    F.grid_sample over all views, masked mean (and variance)."""
-    import torch
-    import torch.nn.functional as F
-
-    pts = torch.cat([world, torch.ones_like(world[:, :1])], dim=1)
-    cam = torch.einsum("vij,nj->vni", proj, pts)
-    z = cam[..., 2]
-    z = torch.where(z.abs() < 1e-12, torch.full_like(z, 1e-12), z)
-    u, v = cam[..., 0] / z, cam[..., 1] / z
-    m = (u >= 0) & (u <= w - 1) & (v >= 0) & (v <= h - 1) & (z > 0)
-    grid = torch.stack([2 * u / (w - 1) - 1, 2 * v / (h - 1) - 1], -1)[:, None]
-    s = F.grid_sample(feats_vchw, grid, align_corners=True,
-                      padding_mode="zeros")[:, :, 0] * m[:, None]
-    cnt = m.sum(0).clamp(min=1)
-    mean = s.sum(0) / cnt
-    if variance:
-        return (s.square().sum(0) / cnt - mean.square()).clamp(min=0), cnt
-    return mean, cnt
+    entries, name = {}, None
+    for line in kernels.ptxas_report(so).read_text().splitlines():
+        m = re.search(r"entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"ILi(\d+)ELb([01])E", m.group(1))
+            name = (f"items={k.group(1)} {'variance' if k.group(2) == '1' else 'mean'}"
+                    if k else m.group(1))
+            entries.setdefault(name, [])
+        elif name and ("spill" in line or "Used" in line):
+            entries[name].append(line.split(":", 1)[-1].strip())
+    return [" | ".join([k, *x]) for k, x in entries.items()]
 
 
 def kernel_phase(frag, card):
-    """Kernel vs plain at the main path's four call shapes."""
+    """Kernel vs plain at the main path's four call shapes, then timed
+    (tools/bench_back_project.py): device time under the profiler with
+    the L2 flushed, wrapper time, plain, library yardstick, bound."""
     import torch
     from eprecon_tpu_torch.ops import back_project as bp
-    from eprecon_tpu_torch.ops.grid import dense_coords
+    from eprecon_tpu_torch.tools import bench_back_project as bench
 
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
-    proj_all = torch.as_tensor(frag["proj_matrices"], device=dev)
-    origin = torch.as_tensor(frag["vol_origin_partial"], device=dev)[None]
-    v = proj_all.shape[0]
-    # (name, mode, window dim, interval, proj scale, feature h, w, channels)
-    shapes = [("occ_init_variance", bp.VARIANCE, (48, 48, 48), 2, 1, 60, 80, 32),
-              ("stage0_window", bp.WINDOW_MEAN, (24, 24, 24), 4, 2, 30, 40, 80),
-              ("stage1_window", bp.WINDOW_MEAN, (48, 48, 48), 2, 1, 60, 80, 40),
-              ("stage2_window", bp.WINDOW_MEAN, (96, 96, 96), 1, 0, 120, 160, 24)]
+    v = frag["proj_matrices"].shape[0]
     results = []
-    for name, mode, dim, interval, scale, h, w, c in shapes:
-        feats = torch.randn(v, 1, h, w, c, device=dev, generator=gen).to(torch.bfloat16)
-        proj = proj_all[:, None, scale].contiguous()
-        n = dim[0] * dim[1] * dim[2]
-        world = (dense_coords(dim, dev).reshape(-1, 3).float() * interval
-                 * 0.04 + origin[0])
-        if mode == bp.VARIANCE:
-            coords = torch.cat([torch.zeros(n, 1, dtype=torch.int32, device=dev),
-                                dense_coords(dim, dev).reshape(-1, 3) * interval], 1)
-            valid = torch.ones(n, dtype=torch.bool, device=dev)
-            run = lambda: bp.back_project_variance(coords, valid, origin, 0.04, feats, proj)
-            plain = lambda: bp.back_project_variance_plain(coords, valid, origin, 0.04,
-                                                           feats, proj)
-            extra_in = n * 16 + n
-        else:
-            run = lambda: bp.back_project_window(dim, interval, origin, 0.04, feats, proj)
-            plain = lambda: bp.back_project_window_plain(dim, interval, origin, 0.04,
-                                                         feats, proj)
-            extra_in = 0
-        (k_out, k_cnt), (p_out, p_cnt) = run(), plain()
+    for case in bench.cases(frag["proj_matrices"], frag["vol_origin_partial"]):
+        name, n, c = case.name, case.n, case.c
+        stats = torch.zeros(3, dtype=torch.int64, device="cuda")
+        (k_out, k_cnt), (p_out, p_cnt) = case.run(stats=stats), case.plain()
         torch.cuda.synchronize()
         k_out, p_out = k_out.float().reshape(n, c), p_out.float().reshape(n, c)
         err = (k_out - p_out).abs().max().item()
@@ -122,29 +78,37 @@ def kernel_phase(frag, card):
             raise AssertionError(f"{name}: kernel and plain view counts differ")
         if not (err <= TOL * scale_):
             raise AssertionError(f"{name}: max abs err {err} > {TOL * scale_}")
-        visible = p_cnt.sum().item()
         if not (0.05 * n < (p_cnt > 0).sum().item()):
             raise AssertionError(f"{name}: degenerate geometry, few visible voxels")
-        feats_f32 = feats[:, 0].permute(0, 3, 1, 2).float().contiguous()
-        proj_f32 = proj[:, 0].float()
-        lib = lambda: yardstick(feats_f32, proj_f32, world, h, w, mode == bp.VARIANCE)
-        bytes_ = (v * h * w * c * 2 + v * 64 + 12 + extra_in + n * c * 2 + n * 4)
-        ops = (n * v * 22 + visible * c * (9 if mode == bp.WINDOW_MEAN else 11)
-               + n * c * (1 if mode == bp.WINDOW_MEAN else 4))
-        t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
-        iters = 50 if n < 200_000 else 20
+        staged, from_memory, empty = stats.tolist()
+        plan = bp.plan_launch(case.extent, c, case.h, case.w, v, 1, case.mode)
+        if staged + from_memory + empty != plan.grid * v:
+            raise AssertionError(f"{name}: brick-view tallies {stats.tolist()} "
+                                 f"!= {plan.grid} CTAs x {v} views")
+        ctas_per_sm = bp.occupancy(plan, case.mode)
+        if ctas_per_sm != plan.ctas_per_sm:
+            raise AssertionError(f"{name}: the card holds {ctas_per_sm} CTAs per "
+                                 f"SM, the plan assumes {plan.ctas_per_sm}")
+        t = bench.time_case(case, v)
         res = dict(name=f"back_project/{name}", route="cuda",
                    source="eprecon_tpu_torch/csrc/back_project.cu",
                    replaces="tools_dev/pallas_gather_probe.py:56",
-                   launches=0, max_abs_err=err,
-                   ms=cuda_ms(run, iters), plain_ms=cuda_ms(plain, max(3, iters // 5)),
-                   bound_ms=max(t_bytes, t_ops),
-                   bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   library_ms=cuda_ms(lib, max(3, iters // 5)),
-                   key=[mode, n, c], bitwise_equal=err == 0.0)
-        print(f"[kernel] {name}: N={n} C={c} err={err:.3g} ms={res['ms']:.4f} "
-              f"plain_ms={res['plain_ms']:.4f} library_ms={res['library_ms']:.4f} "
-              f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']}) | {card}",
+                   launches=0, max_abs_err=err, **t,
+                   key=[case.mode, n, c], bitwise_equal=err == 0.0,
+                   ctas_per_sm=ctas_per_sm,
+                   brick_views=dict(staged=staged, from_memory=from_memory,
+                                    empty=empty),
+                   launch_parameters=dict(brick=list(plan.brick), grid=plan.grid,
+                                          threads=plan.threads,
+                                          smem_bytes=plan.smem_bytes))
+        print(f"[kernel] {name}: N={n} C={c} err={err:.3g} ms={t['ms']:.4f} "
+              f"(profiled windows {t['profiler_windows']}) "
+              f"call_ms={t['call_ms']:.4f} plain_ms={t['plain_ms']:.4f} "
+              f"library_ms={t['library_ms']:.4f} bound_ms={t['bound_ms']:.4f} "
+              f"({t['bound_by']}) CTAs/SM on the card={ctas_per_sm} "
+              f"brick-views staged/from-memory/empty={staged}/{from_memory}/"
+              f"{empty} | launched with brick={plan.brick} grid={plan.grid} "
+              f"threads={plan.threads} smem={plan.smem_bytes} B | {card}",
               flush=True)
         results.append(res)
     return results
@@ -272,6 +236,7 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from eprecon_tpu_torch import kernels
     from eprecon_tpu_torch.data.synthetic import make_fragment
+    from eprecon_tpu_torch.tools.bench_back_project import card_line
 
     card = card_line()
     print(f"[card] {card}", flush=True)
@@ -280,6 +245,9 @@ def main() -> int:
     kernels.load("back_project")
     build_s = time.perf_counter() - t0
     print(f"[build] {so.name} in {build_s:.1f} s", flush=True)
+    ptxas = ptxas_lines(so)
+    for line in ptxas:
+        print(f"[ptxas] {line}", flush=True)
 
     frag = make_fragment(seed=0)
     kern = kernel_phase(frag, card)
@@ -293,7 +261,7 @@ def main() -> int:
     out_dir = REPO / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
-        card=card, build_s=build_s, kernels=kern, main_path=main_res,
+        card=card, build_s=build_s, ptxas=ptxas, kernels=kern, main_path=main_res,
         reference=ref), indent=1))
     print(json.dumps({"kernels": kern}))
     print(card)

@@ -3,7 +3,9 @@
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled with
 nvcc into `_build/<name>-<hash>.so` at first use (the hash covers the
 source and the flags, so an edited source is rebuilt), then opened with
-ctypes. Nothing is built or imported when this module is imported.
+ctypes. ptxas's report (registers, shared memory and spills per kernel)
+is kept beside it as `<name>-<hash>.ptxas.txt`. Nothing is built or
+imported when this module is imported.
 """
 from __future__ import annotations
 
@@ -19,7 +21,8 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-fmad=false", "--ptxas-options=-v", "-shared", "-Xcompiler",
+              "-fPIC")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -50,8 +53,14 @@ def build(name: str) -> Path:
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src.name}:\n{proc.stderr}")
+    ptxas_report(out).write_text(proc.stderr)
     os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
     return out
+
+
+def ptxas_report(so: Path) -> Path:
+    """The ptxas report kept beside a built library."""
+    return so.with_suffix(".ptxas.txt")
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -20,7 +20,10 @@ from __future__ import annotations
 
 import collections
 import ctypes
-from typing import Optional, Sequence, Tuple
+import dataclasses
+import functools
+import math
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -121,18 +124,152 @@ def back_project_variance_plain(coords, valid, origin, voxel_size, feats, proj):
 
 
 # ---------------------------------------------------------------------------
+# launch plan (pure arithmetic; the kernel takes its shared-memory layout)
+# ---------------------------------------------------------------------------
+
+SM_COUNT = 132                    # H100 SXM
+MIN_WAVES = 2                     # full waves of resident CTAs a grid should fill
+MAX_THREADS = 256
+MAX_CTAS_PER_SM = 32
+MAX_THREADS_PER_SM = 2048
+SMEM_PER_SM = 228 * 1024          # 1 KB of it reserved per resident CTA
+SMEM_GRANULE = 128                # a CTA's shared memory is allocated in these
+REGS_PER_SM = 65536               # in 4 sub-partitions, each holding whole warps
+REGS_PER_THREAD = 80              # launch bounds 256 x 3 CTAs; a multiple of 8,
+                                  # the allocation unit (256 per warp)
+# warps per SM the registers hold: 4 x 6; `occupancy` checks it on the card
+WARPS_BY_REGS = 4 * (REGS_PER_SM // 4 // (REGS_PER_THREAD * 32))
+SMEM_MAX = 232448                 # the most one CTA can opt in to (227 KB)
+MIN_BRICK = 16                    # voxels; smaller only when channels force it
+BRICKS = ((8, 8, 8), (4, 8, 8), (4, 4, 8), (4, 4, 4), (2, 4, 4), (2, 2, 4),
+          (2, 2, 2), (1, 2, 2), (1, 1, 2), (1, 1, 1))
+RUNS = (256, 128, 64, 32, 16, 8, 4, 2, 1)
+MAX_ITEMS = {WINDOW_MEAN: 3, VARIANCE: 2}  # f32 sums kept in registers
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    brick: Tuple[int, int, int]  # voxels per CTA; a row run is (run, 1, 1)
+    grid: int                    # CTAs
+    threads: int                 # per CTA, a multiple of 32
+    items: int                   # (voxel, 8-channel) items per thread
+    ctas_per_sm: int             # resident CTAs the shared memory is cut for
+    patch_bytes: int             # one of the two staging buffers
+    layout: Tuple[int, ...]      # shared-memory region offsets, then the total
+
+    @property
+    def smem_bytes(self) -> int:  # dynamic shared memory per CTA
+        return self.layout[-1]
+
+
+def _align16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def smem_regions(v: int, b: int, bvox: int, patch_bytes: int):
+    """Bytes of each shared-memory region of one CTA, in the order of
+    `Layout` in csrc/back_project.cu, which says how the kernel indexes
+    them."""
+    return dict(proj=v * b * 16 * 4, world=bvox * 16, row=bvox * 4,
+                cnt=bvox * 4, w=2 * bvox * 16, uv=2 * bvox * 4,
+                part=(MAX_THREADS // 32) * 8 * 4, box=2 * 8 * 4,
+                views=(v + 1) * 4, patch=2 * patch_bytes)
+
+
+def smem_layout(v: int, b: int, bvox: int, patch_bytes: int) -> Tuple[int, ...]:
+    """Offsets of the regions of `smem_regions`, each 16-byte aligned, and
+    their total: the layout the kernel is launched with."""
+    offsets, at = [], 0
+    for size in smem_regions(v, b, bvox, patch_bytes).values():
+        offsets.append(at)
+        at += _align16(size)
+    return (*offsets, at)
+
+
+def _brick_shape(bvox: int, nvec: int, grid: int) -> Tuple[int, int, int]:
+    """(items per thread, threads, resident CTAs per SM) of a brick."""
+    items = math.ceil(bvox * nvec / MAX_THREADS)
+    threads = 32 * math.ceil(bvox * nvec / items / 32)
+    ctas = min(WARPS_BY_REGS // (threads // 32), MAX_CTAS_PER_SM,
+               MAX_THREADS_PER_SM // threads, math.ceil(grid / SM_COUNT))
+    return items, threads, max(1, ctas)
+
+
+def _grid(extent: Tuple[int, ...], brick: Tuple[int, int, int]) -> int:
+    return math.prod(math.ceil(e / s) for e, s in zip(extent, brick))
+
+
+def brick_choices(extent: Tuple[int, ...], c: int, mode: int
+                  ) -> List[Tuple[int, int, int]]:
+    """The bricks a launch over `extent` may take, largest first: those
+    whose items fit the registers, of at least MIN_BRICK voxels (unless the
+    channels leave only smaller ones). extent: (X, Y, Z) of a dense window,
+    or (N,) rows of a coordinate list."""
+    nvec = c // 8
+    cands = BRICKS if len(extent) == 3 else tuple((r, 1, 1) for r in RUNS)
+    fitting = [br for br in cands
+               if math.ceil(math.prod(br) * nvec / MAX_THREADS) <= MAX_ITEMS[mode]]
+    if not fitting:
+        raise ValueError(f"{c} channels are too wide for one CTA")
+    return [br for br in fitting if math.prod(br) >= MIN_BRICK] or fitting[:1]
+
+
+def plan_brick(extent: Tuple[int, ...], c: int, h: int, w: int, v: int,
+               b: int, brick: Tuple[int, int, int]) -> LaunchPlan:
+    """The launch over `extent` with one CTA per `brick`. As many CTAs
+    share an SM as the registers allow, or as the grid needs to run in one
+    wave if that is fewer; the staging buffers take the shared memory those
+    CTAs leave (whole 128-byte granules), capped at a whole table (h * w
+    pixels of c channels)."""
+    bvox, grid = math.prod(brick), _grid(extent, brick)
+    items, threads, ctas = _brick_shape(bvox, c // 8, grid)
+    fixed = smem_layout(v, b, bvox, 0)[-1]
+    if fixed > SMEM_MAX:
+        raise ValueError(f"{v} views x {b} batches exceed shared memory")
+    budget = min(SMEM_PER_SM // ctas - 1024, SMEM_MAX) // SMEM_GRANULE * SMEM_GRANULE
+    patch = min(max(0, (budget - fixed) // 2 // 16 * 16), _align16(h * w * c * 2))
+    return LaunchPlan(brick, grid, threads, items, ctas, patch,
+                      smem_layout(v, b, bvox, patch))
+
+
+@functools.lru_cache(maxsize=None)
+def plan_launch(extent: Tuple[int, ...], c: int, h: int, w: int, v: int,
+                b: int = 1, mode: int = WINDOW_MEAN) -> LaunchPlan:
+    """Brick, grid and shared memory of one launch (`plan_brick`): the
+    largest of the `brick_choices` whose grid fills the card with
+    MIN_WAVES waves of resident CTAs, else the one that fills the most.
+    (Per-brick setup and view cull favour large bricks; a grid of less
+    than two waves leaves SMs idle at its end.)"""
+    def waves(br):
+        grid = _grid(extent, br)
+        return grid / (_brick_shape(math.prod(br), c // 8, grid)[2] * SM_COUNT)
+
+    choices = brick_choices(extent, c, mode)
+    full = [br for br in choices if waves(br) >= MIN_WAVES]
+    return plan_brick(extent, c, h, w, v, b, full[0] if full else max(choices, key=waves))
+
+
+# ---------------------------------------------------------------------------
 # CUDA kernel wrapper
 # ---------------------------------------------------------------------------
 
-def _library() -> ctypes.CDLL:
-    lib = kernels.load("back_project")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of a loaded kernel library."""
     if lib.bp_forward.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.bp_forward.argtypes = [p, p, p, p, p, i, i, i, i, i,
                                    ctypes.c_longlong, i, i, i, i,
-                                   ctypes.c_float, i, p, p, p]
+                                   ctypes.c_float, i, i, i, i, i, i,
+                                   ctypes.POINTER(ctypes.c_longlong),
+                                   p, p, p, p]
         lib.bp_forward.restype = ctypes.c_int
+        lib.bp_occupancy.argtypes = [i, i, i, i, ctypes.POINTER(i)]
+        lib.bp_occupancy.restype = ctypes.c_int
     return lib
+
+
+def _library() -> ctypes.CDLL:
+    return bind(kernels.load("back_project"))
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
@@ -151,9 +288,13 @@ def _launch(mode: int, table: torch.Tensor, proj: torch.Tensor,
             origin: torch.Tensor, coords: Optional[torch.Tensor],
             valid: Optional[torch.Tensor], n: int, h: int, w: int,
             dims: Sequence[int] = (0, 0, 0), interval: int = 1,
-            voxel_size: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
+            voxel_size: float = 1.0, stats: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """table [V, B*H*W, C] bf16; proj [V, B, 16] f32; origin [B, 3] f32;
-    coords [N, 4] int32 or None (dense window `dims` * `interval`)."""
+    coords [N, 4] int32 or None (dense window `dims` * `interval`);
+    stats: None, or int64 [3] that the kernel adds its brick-view tallies
+    to (staged in shared memory, read from device memory, no voxel
+    visible)."""
     dev = table.device
     if dev.type != "cuda":
         raise ValueError(f"back-projection kernel needs CUDA tensors, got {dev}")
@@ -163,14 +304,16 @@ def _launch(mode: int, table: torch.Tensor, proj: torch.Tensor,
         raise ValueError(f"channels {c} not a multiple of 8")
     if rows != bb * h * w:
         raise ValueError(f"table rows {rows} != B*H*W = {bb * h * w}")
-    if vv * bb * 16 * 4 > 48 * 1024:
-        raise ValueError(f"{vv} views x {bb} batches exceed shared memory")
     _check("table", table, torch.bfloat16, (vv, rows, c), dev)
     _check("proj", proj, torch.float32, (vv, bb, 16), dev)
     _check("origin", origin, torch.float32, (bb, 3), dev)
     if coords is not None:
         _check("coords", coords, torch.int32, (n, 4), dev)
         _check("valid", valid, torch.uint8, (n,), dev)
+    if stats is not None:
+        _check("stats", stats, torch.int64, (3,), dev)
+    plan = plan_launch((n,) if coords is not None else tuple(dims), c, h, w,
+                       vv, bb, mode)
     lib = _library()
     out = torch.empty(n, c, dtype=torch.bfloat16, device=dev)
     count = torch.empty(n, dtype=torch.float32, device=dev)
@@ -178,7 +321,9 @@ def _launch(mode: int, table: torch.Tensor, proj: torch.Tensor,
     rc = lib.bp_forward(ptr(table), ptr(proj), ptr(origin), ptr(coords),
                         ptr(valid), vv, bb, h, w, c, n, dims[0], dims[1],
                         dims[2], interval, float(voxel_size), mode,
-                        out.data_ptr(), count.data_ptr(),
+                        *plan.brick, plan.threads, plan.items,
+                        (ctypes.c_longlong * len(plan.layout))(*plan.layout),
+                        out.data_ptr(), count.data_ptr(), ptr(stats),
                         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"back_project kernel launch failed: CUDA error {rc}")
@@ -190,27 +335,43 @@ def total_launches() -> int:
     return sum(launch_counts.values())
 
 
+def occupancy(plan: LaunchPlan, mode: int) -> int:
+    """CTAs of `plan` that one SM of the current CUDA device holds, from
+    the CUDA occupancy calculator on the built kernel; `plan_launch` cuts
+    the shared memory for `plan.ctas_per_sm` of them."""
+    ctas = ctypes.c_int(0)
+    rc = _library().bp_occupancy(mode, plan.items, plan.threads,
+                                 plan.smem_bytes, ctypes.byref(ctas))
+    if rc != 0:
+        raise RuntimeError(f"back_project occupancy query failed: CUDA error {rc}")
+    return ctas.value
+
+
 # ---------------------------------------------------------------------------
 # public functions
 # ---------------------------------------------------------------------------
 
-def _route(t: torch.Tensor) -> str:
+def _route(t: torch.Tensor, stats: Optional[torch.Tensor]) -> str:
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"back-projection runs on CPU or CUDA, not {t.device}")
+    if t.device.type == "cpu" and stats is not None:
+        raise ValueError("stats are the CUDA kernel's; the CPU version has none")
     return t.device.type
 
 
 def back_project_window(dim: Tuple[int, int, int], interval: int,
                         origin: torch.Tensor, voxel_size: float,
-                        feats: torch.Tensor, proj: torch.Tensor):
+                        feats: torch.Tensor, proj: torch.Tensor,
+                        stats: Optional[torch.Tensor] = None):
     """Mean of visible-view features for every voxel of a dense window
     (port of back_project.py:147-212).
 
     dim: (X, Y, Z); interval: window stride in fine voxels; origin [1, 3];
-    feats [V, 1, H, W, C]; proj [V, 1, 4, 4].
+    feats [V, 1, H, W, C]; proj [V, 1, 4, 4]; stats: kernel only, see
+    `_launch`.
     Returns (mean [X, Y, Z, C] bf16, count [X, Y, Z] f32).
     """
-    if _route(feats) == "cpu":
+    if _route(feats, stats) == "cpu":
         return back_project_window_plain(dim, interval, origin, voxel_size,
                                          feats, proj)
     vv, bb, h, w, c = feats.shape
@@ -220,22 +381,24 @@ def back_project_window(dim: Tuple[int, int, int], interval: int,
     mean, count = _launch(
         WINDOW_MEAN, table, proj.float().reshape(vv, 1, 16).contiguous(),
         origin.float().reshape(1, 3).contiguous(), None, None,
-        dim[0] * dim[1] * dim[2], h, w, dim, interval, voxel_size)
+        dim[0] * dim[1] * dim[2], h, w, dim, interval, voxel_size, stats)
     return mean.reshape(*dim, c), count.reshape(dim)
 
 
 def back_project_variance(coords: torch.Tensor, valid: torch.Tensor,
                           origin: torch.Tensor, voxel_size: float,
-                          feats: torch.Tensor, proj: torch.Tensor):
+                          feats: torch.Tensor, proj: torch.Tensor,
+                          stats: Optional[torch.Tensor] = None):
     """Cross-view feature variance over visible views per voxel, the
     occupancy-init matching cost (port of back_project.py:215-249).
 
     coords [K, 4] (b, x, y, z) fine units; valid [K] bool; origin [B, 3];
-    feats [V, B, H, W, C]; proj [V, B, 4, 4].
+    feats [V, B, H, W, C]; proj [V, B, 4, 4]; stats: kernel only, see
+    `_launch`.
     Returns (variance [K, C] in feats' dtype, count [K] f32). The kernel
     takes bf16 features, the dtype of the path.
     """
-    if _route(feats) == "cpu":
+    if _route(feats, stats) == "cpu":
         return back_project_variance_plain(coords, valid, origin, voxel_size,
                                            feats, proj)
     vv, bb, h, w, c = feats.shape
@@ -247,4 +410,4 @@ def back_project_variance(coords: torch.Tensor, valid: torch.Tensor,
         origin.float().reshape(bb, 3).contiguous(),
         coords.to(torch.int32).contiguous(),
         valid.to(torch.uint8).contiguous(), coords.shape[0], h, w,
-        voxel_size=voxel_size)
+        voxel_size=voxel_size, stats=stats)
