@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero before the result line):
-  1. build csrc/back_project.cu for sm_90a with nvcc;
+  1. build csrc/back_project.cu (forward and backward kernels) for sm_90a
+     with nvcc;
   2. at the four back-projection call shapes of a full-width fragment,
      hold the kernel against its plain PyTorch version on the card, tally
      its brick-views (staged in shared memory / read from device memory /
@@ -15,13 +16,27 @@ Phases (any failure exits non-zero before the result line):
      flushed, call_ms the wrapper's time per call, beside the plain
      version, an F.grid_sample yardstick (library_ms) and the least time
      the card could take (bound_ms);
-  3. serve the main path: StreamingReconstructor at the default config
+  3. the backward kernel at the same four shapes against the plain
+     backward (f32 gradient of the tables, max abs error <= 1e-4 of its
+     largest entry: f32 atomics sum in a changing order), timed the same
+     way (library_ms: autograd of the F.grid_sample yardstick);
+  4. serve the main path: StreamingReconstructor at the default config
      (96^3 window at 4 cm, 9 views at 640x480, 80-query 6-layer decoder),
      random weights from a seed, 3 fragments of one scene then 1 of a
      second (scene flush); the kernel must launch 4 times per fragment;
-  4. reference check at tiny size: the same forward on CUDA and on the
-     CPU (the CPU port is held against the JAX package by
-     tests/test_torch_forward.py).
+  5. train at full width: Trainer at the default config with the port's
+     own GT fragments (one scene stream threading the recurrent state),
+     random weights from the seed, 6 micro-steps = 3 optimizer updates.
+     Two reductions: accumulation 2 (not 8) and threshold-free selection
+     (stage thresholds -100, occupancy-init threshold 0), without which
+     random weights select an arbitrary, often empty, set. Checks: every
+     loss term finite and > 0; a non-zero gradient in each trained module
+     group; parameters move on each update and not between; 4 forward and
+     4 backward kernel launches per step; the maps finite and growing.
+     Prints step ms (step 0 and the median of steps 3-6) and peak GiB;
+  6. reference checks at tiny size: the same forward, and one training
+     micro-step, on CUDA and on the CPU (the CPU port is held against the
+     JAX package by tests/test_torch_forward.py and test_torch_train.py).
 Prints ptxas's registers and spills per kernel instance, the card's name
 and power limit, a JSON line of kernel results,
 and as the last line {"ok": true, "device": {...}}. Full results also go
@@ -36,6 +51,8 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 TOL = 1e-2                  # kernel vs plain, relative to max(1, |plain|)
+BACKWARD_TOL = 1e-4         # backward kernel vs plain, relative to max |plain|
+TRAIN_STEPS = 6
 
 
 def ptxas_lines(so: Path):
@@ -48,15 +65,17 @@ def ptxas_lines(so: Path):
         m = re.search(r"entry function '(\S+)'", line)
         if m:
             k = re.search(r"ILi(\d+)ELb([01])E", m.group(1))
+            b = re.search(r"backward_kernelILb([01])E", m.group(1))
             name = (f"items={k.group(1)} {'variance' if k.group(2) == '1' else 'mean'}"
-                    if k else m.group(1))
+                    if k else f"backward {'variance' if b.group(1) == '1' else 'mean'}"
+                    if b else m.group(1))
             entries.setdefault(name, [])
         elif name and ("spill" in line or "Used" in line):
             entries[name].append(line.split(":", 1)[-1].strip())
     return [" | ".join([k, *x]) for k, x in entries.items()]
 
 
-def kernel_phase(frag, card):
+def kernel_phase(case_list, v, card):
     """Kernel vs plain at the main path's four call shapes, then timed
     (tools/bench_back_project.py): device time under the profiler with
     the L2 flushed, wrapper time, plain, library yardstick, bound."""
@@ -64,9 +83,8 @@ def kernel_phase(frag, card):
     from eprecon_tpu_torch.ops import back_project as bp
     from eprecon_tpu_torch.tools import bench_back_project as bench
 
-    v = frag["proj_matrices"].shape[0]
     results = []
-    for case in bench.cases(frag["proj_matrices"], frag["vol_origin_partial"]):
+    for case in case_list:
         name, n, c = case.name, case.n, case.c
         stats = torch.zeros(3, dtype=torch.int64, device="cuda")
         (k_out, k_cnt), (p_out, p_cnt) = case.run(stats=stats), case.plain()
@@ -111,6 +129,37 @@ def kernel_phase(frag, card):
               f"threads={plan.threads} smem={plan.smem_bytes} B | {card}",
               flush=True)
         results.append(res)
+    return results
+
+
+def backward_phase(case_list, v, card):
+    """Backward kernel vs plain backward at the four call shapes, then
+    timed like the forward."""
+    import torch
+    from eprecon_tpu_torch.tools import bench_back_project as bench
+
+    results = []
+    for case in case_list:
+        got, want = case.backward(), case.backward_plain()
+        torch.cuda.synchronize()
+        scale = want.abs().max().item()
+        err = (got.reshape(want.shape) - want).abs().max().item()
+        if not (scale > 0 and err <= BACKWARD_TOL * scale):
+            raise AssertionError(f"backward {case.name}: max abs err {err} > "
+                                 f"{BACKWARD_TOL} x {scale}")
+        t = bench.time_case(case, v, "backward")
+        results.append(dict(
+            name=f"back_project_backward/{case.name}", route="cuda",
+            source="eprecon_tpu_torch/csrc/back_project.cu",
+            replaces="eprecon_tpu/ops/back_project.py:23",
+            launches=0, max_abs_err=err, **t, key=[case.mode, case.n, case.c],
+            rel_err=err / scale))
+        print(f"[backward] {case.name}: N={case.n} C={case.c} err={err:.3g} "
+              f"(max |plain| {scale:.3g}) ms={t['ms']:.4f} "
+              f"(profiled windows {t['profiler_windows']}) "
+              f"call_ms={t['call_ms']:.4f} plain_ms={t['plain_ms']:.4f} "
+              f"library_ms={t['library_ms']:.4f} bound_ms={t['bound_ms']:.4f} "
+              f"({t['bound_by']}) | {card}", flush=True)
     return results
 
 
@@ -202,7 +251,7 @@ def reference_phase(card):
             torch.as_tensor(d["world_to_aligned_camera"], device=dev),
             np.zeros((3, 3), np.int64))
         with torch.no_grad():
-            out, _ = model(torch.as_tensor(d["imgs"], device=dev), frag,
+            out, _, _ = model(torch.as_tensor(d["imgs"], device=dev), frag,
                            te.make_recurrent_state(m, dev))
         outs[dev] = {k: v.cpu() for k, v in out.items()
                      if isinstance(v, torch.Tensor)}
@@ -218,6 +267,142 @@ def reference_phase(card):
             raise AssertionError(f"reference check: {k} rel err {rel}")
     print(f"[reference] tiny forward CUDA vs CPU: {res} | {card}", flush=True)
     return res
+
+
+def train_phase(card):
+    """Six training micro-steps at full width over one scene stream."""
+    import numpy as np
+    import torch
+    from eprecon_tpu_torch.config import default_config
+    from eprecon_tpu_torch.data.synthetic import make_fragment, make_scene
+    from eprecon_tpu_torch.models.eprecon import EPRecon, LOSS_ORDER
+    from eprecon_tpu_torch.ops import back_project as bp
+    from eprecon_tpu_torch.ops import grid
+    from eprecon_tpu_torch.train.state import Trainer, fragment_tensors
+
+    cfg = default_config()
+    m = dataclasses.replace(cfg.model, thresholds=(-100.0,) * 3,
+                            occ_init_threshold=0.0)
+    cfg = dataclasses.replace(cfg, model=m, train=dataclasses.replace(
+        cfg.train, accumulation_steps=2))
+    reduced = dict(accumulation_steps=2, thresholds=m.thresholds,
+                   occ_init_threshold=m.occ_init_threshold)
+    print(f"[train] reduced from the default config: {reduced} | {card}",
+          flush=True)
+    scene = make_scene(0)
+    frags = [make_fragment(n_vox=m.n_vox, voxel_size=m.voxel_size, scene=scene,
+                           start_angle=0.2 * i) for i in range(TRAIN_STEPS)]
+    g_origin = grid.scene_global_origin(m.global_extent, m.n_vox, m.n_scales,
+                                        m.voxel_size,
+                                        frags[0]["vol_origin_partial"] - 0.5,
+                                        m.origin_margin)
+    trainer = Trainer(cfg, EPRecon(m, seed=cfg.seed))  # device: CUDA
+    groups = (["backbone2d.", "backbone_occ_pano.", "neucon_net.panoptic."]
+              + [f"neucon_net.{g}_{i}." for g in ("sp_conv", "gru_fusion")
+                 for i in range(m.n_layer)])
+    rec = trainer.recurrent_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bp.launch_counts.clear()
+    bp.backward_launch_counts.clear()
+    step_ms, losses, map_sizes, grad_norms = [], [], [], {}
+    for i, d in enumerate(frags):
+        rel = np.stack([np.round((d["vol_origin_partial"] - g_origin)
+                                 / (m.voxel_size * 2 ** (m.n_scales - lv)))
+                        for lv in range(m.n_layer)]).astype(np.int64)
+        imgs, frag, targets = fragment_tensors(d, rel, torch.device("cuda"))
+        before = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
+        fwd, bwd = bp.total_launches(), bp.total_backward_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec, metrics = trainer.step(imgs, frag, targets, rec)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launched = (bp.total_launches() - fwd, bp.total_backward_launches() - bwd)
+        if launched != (4, 4):
+            raise AssertionError(f"step {i}: {launched} forward/backward kernel "
+                                 f"launches, want (4, 4)")
+        terms = {k: float(metrics[k]) for k in (*LOSS_ORDER, "total_loss")}
+        if not all(np.isfinite(x) and x > 0 for x in terms.values()):
+            raise AssertionError(f"step {i}: loss terms {terms}")
+        updated = trainer.optimizer.mini_step == 0
+        if i == 0:  # the accumulator holds step 0's gradients
+            acc = trainer.optimizer.acc
+            grad_norms = {g: float(torch.sqrt(sum(acc[n].square().sum() for n in acc
+                                                  if n.startswith(g))))
+                          for g in groups}
+            if not all(x > 0 for x in grad_norms.values()):
+                raise AssertionError(f"zero gradient in a module group: {grad_norms}")
+        moved = any(not torch.equal(p, before[n])
+                    for n, p in trainer.model.named_parameters())
+        if moved != updated:
+            raise AssertionError(f"step {i}: parameters moved={moved}, "
+                                 f"optimizer updated={updated}")
+        for gm in rec.gmaps:
+            if not torch.isfinite(gm.feats.float()).all():
+                raise AssertionError(f"step {i}: non-finite global map")
+        map_sizes.append([int(gm.mask.sum()) for gm in rec.gmaps])
+        losses.append(terms)
+        print(f"[train] step {i} ms={step_ms[-1]:.1f} updated={updated} "
+              f"losses={ {k: round(x, 4) for k, x in terms.items()} } "
+              f"global-map voxels per level={map_sizes[-1]} | {card}", flush=True)
+    if not map_sizes[-1][2] > map_sizes[0][2]:
+        raise AssertionError(f"global map did not grow: {map_sizes}")
+    if trainer.optimizer.updates != TRAIN_STEPS // 2:
+        raise AssertionError(f"{trainer.optimizer.updates} optimizer updates")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steady = float(np.median(step_ms[2:]))
+    print(f"[train] step 0 ms={step_ms[0]:.1f}; steady-state step ms (median of "
+          f"steps 3-{TRAIN_STEPS})={steady:.1f}; peak memory {peak:.2f} GiB; "
+          f"gradient norms at step 0 { {k: round(x, 5) for k, x in grad_norms.items()} }"
+          f" | {card}", flush=True)
+    return dict(step_ms=step_ms, steady_step_ms=steady, peak_gib=peak,
+                losses=losses, map_sizes=map_sizes, grad_norms=grad_norms,
+                reduced=reduced), dict(bp.launch_counts), dict(bp.backward_launch_counts)
+
+
+def train_reference_phase(card):
+    """One training micro-step at tiny size on CUDA and on the CPU, same
+    weights and data, running-statistics BatchNorm: loss terms and the
+    gradient (the optimizer's accumulator) compared."""
+    import numpy as np
+    import torch
+    from eprecon_tpu_torch.config import default_config
+    from eprecon_tpu_torch.data.synthetic import make_fragment
+    from eprecon_tpu_torch.models import eprecon as te
+    from eprecon_tpu_torch.train.state import Trainer, fragment_tensors
+
+    cfg = default_config()
+    m = dataclasses.replace(
+        cfg.model, n_vox=(32, 32, 32), voxel_size=0.12,
+        voxel_capacity=(512, 4096, 32768), global_extent=(64, 64, 32),
+        thresholds=(-100.0,) * 3, occ_init_threshold=0.0, min_init_voxels=1,
+        min_stage_voxels=1, panoptic=dataclasses.replace(
+            cfg.model.panoptic, min_instance_voxels=20))
+    cfg = dataclasses.replace(cfg, model=m, train=dataclasses.replace(
+        cfg.train, accumulation_steps=2))
+    d = make_fragment(n_views=3, image_hw=(96, 128), n_vox=m.n_vox,
+                      voxel_size=m.voxel_size, seed=3)
+    terms, grads = {}, {}
+    for dev in ("cpu", "cuda"):
+        tr = Trainer(cfg, te.EPRecon(m, use_running_average=True, seed=5),
+                     device=dev)
+        imgs, frag, targets = fragment_tensors(d, np.zeros((3, 3), np.int64),
+                                               torch.device(dev))
+        _, metrics = tr.step(imgs, frag, targets, tr.recurrent_state())
+        terms[dev] = {k: float(x) for k, x in metrics.items()}
+        grads[dev] = torch.cat([a.flatten().cpu() for _, a in
+                                sorted(tr.optimizer.acc.items())])
+    rel = {k: abs(terms["cuda"][k] - x) / max(abs(x), 1e-6)
+           for k, x in terms["cpu"].items() if "loss" in k}
+    a, b = grads["cpu"], grads["cuda"]
+    cos = float((a * b).sum() / (a.norm() * b.norm()))
+    print(f"[reference] tiny training step CUDA vs CPU: loss rel err {rel}, "
+          f"gradient cosine {cos:.5f} | {card}", flush=True)
+    if not (all(x < 5e-2 for x in rel.values()) and torch.isfinite(b).all()
+            and cos > 0.98):
+        raise AssertionError(f"training reference check: {rel}, cosine {cos}")
+    return dict(loss_rel_err=rel, grad_cosine=cos)
 
 
 def main() -> int:
@@ -249,20 +434,36 @@ def main() -> int:
     for line in ptxas:
         print(f"[ptxas] {line}", flush=True)
 
+    from eprecon_tpu_torch.tools import bench_back_project as bench
+
     frag = make_fragment(seed=0)
-    kern = kernel_phase(frag, card)
+    v = frag["proj_matrices"].shape[0]
+    case_list = bench.cases(frag["proj_matrices"], frag["vol_origin_partial"])
+    kern = kernel_phase(case_list, v, card)
+    kern_bwd = backward_phase(case_list, v, card)
+    del case_list
     main_res, launches = main_path_phase(card)
+    train_res, train_fwd, train_bwd = train_phase(card)
     for k in kern:
-        k["launches"] = int(launches.get(tuple(k.pop("key")), 0))
-        if k["launches"] == 0:
+        key = tuple(k.pop("key"))
+        k["launches"] = int(launches.get(key, 0))
+        k["train_launches"] = int(train_fwd.get(key, 0))
+        if k["launches"] == 0 or k["train_launches"] == 0:
             raise AssertionError(f"{k['name']}: not launched on the main path")
+    for k in kern_bwd:
+        k["launches"] = int(train_bwd.get(tuple(k.pop("key")), 0))
+        if k["launches"] != TRAIN_STEPS:
+            raise AssertionError(f"{k['name']}: {k['launches']} launches in "
+                                 f"{TRAIN_STEPS} training steps")
+    kern = kern + kern_bwd
     ref = reference_phase(card)
+    ref["train"] = train_reference_phase(card)
 
     out_dir = REPO / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, build_s=build_s, ptxas=ptxas, kernels=kern, main_path=main_res,
-        reference=ref), indent=1))
+        train=train_res, reference=ref), indent=1))
     print(json.dumps({"kernels": kern}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,16 @@
-"""Typed configuration tree for the inference path.
+"""Typed configuration tree for serving and the training step.
 
 Own copy of the dataclasses in `eprecon_tpu/config.py` that the serving
-path reads (reference: config/default.py, config/train.yaml). Training-only
-fields (loss weights, sample caps, remat, the back-projection adjoint),
-sparse-engine capacities and YAML loading come with the slices that use
-them.
+path and the single-card training step read (reference: config/default.py,
+config/train.yaml). Left for the slices that use them: the data and loop
+fields of the training config, sparse-engine capacities, YAML loading, and
+two JAX-only knobs (`remat_mode`, a TPU memory setting, and `bp_backward`,
+a TPU choice between two equal adjoints: the port has one backward kernel).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -31,6 +32,15 @@ class PanopticConfig:
     nheads: int = 8
     dec_layers: int = 6
     dim_feedforward_mult: int = 4
+    # set-criterion weights (reference models/criterion.py)
+    class_weight: float = 0.2
+    mask_weight: float = 0.8
+    dice_weight: float = 0.8
+    no_object_weight: float = 0.1
+    # static slots of GT instances per fragment
+    max_instances: int = 48
+    # GT instances with this many voxels or fewer are dropped
+    min_instance_voxels: int = 100
 
 
 @dataclass(frozen=True)
@@ -39,6 +49,10 @@ class ModelConfig:
     voxel_size: float = 0.04
     n_layer: int = 3
     thresholds: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    # occupancy BCE positive weight, and the loss weights over
+    # (tsdf_occ_loss_0, 1, 2, panoptic) (reference models/neuralrecon.py:79-84)
+    pos_weight: float = 1.5
+    lw: Tuple[float, ...] = (1.0, 0.8, 0.64, 1.2)
     # BGR pixel mean/std (reference config/default.py:60-61)
     pixel_mean: Tuple[float, float, float] = (103.53, 116.28, 123.675)
     pixel_std: Tuple[float, float, float] = (1.0, 1.0, 1.0)
@@ -74,9 +88,25 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer recipe of the training step (reference config/train.yaml
+    TRAIN and main.py:154-348): Adam, MultiStepLR, grad clip, gradient
+    accumulation, staged freezing."""
+    lr: float = 1e-4
+    lr_epochs: str = "70,90:10"   # milestones (epochs) : lr divisor
+    weight_decay: float = 0.0
+    betas: Tuple[float, float] = (0.9, 0.999)
+    grad_clip: float = 1.0
+    accumulation_steps: int = 8
+    only_init: bool = False       # train the occupancy initialization alone
+    finetune_layer: Optional[str] = None  # 'init': freeze backbone2d + init
+
+
+@dataclass(frozen=True)
 class Config:
     seed: int = 1
     model: ModelConfig = field(default_factory=ModelConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
 
 
 def default_config() -> Config:

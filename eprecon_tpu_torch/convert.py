@@ -11,7 +11,7 @@ attribute path. Leaves change layout by module type:
 """
 from __future__ import annotations
 
-from typing import Mapping, Optional
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -36,25 +36,28 @@ def _leaf_to_torch(module: nn.Module, name: str, value: np.ndarray) -> torch.Ten
     raise TypeError(f"'kernel' under {type(module).__name__}")
 
 
-def _load(module: nn.Module, tree: Mapping, path: str, loaded: set):
+def _walk(module: nn.Module, tree: Mapping, path: str, prefix: str,
+          out: Dict[str, torch.Tensor]):
     for key, value in tree.items():
         where = f"{path}/{key}"
         if isinstance(value, Mapping):
             if not hasattr(module, key):
                 raise KeyError(f"no port module for flax path {where}")
-            _load(getattr(module, key), value, where, loaded)
+            _walk(getattr(module, key), value, where, f"{prefix}{key}.", out)
             continue
         attr = "weight" if key == "kernel" else _RENAME.get(key, key)
-        target = getattr(module, attr, None)
-        if not isinstance(target, torch.Tensor):
+        if not isinstance(getattr(module, attr, None), torch.Tensor):
             raise KeyError(f"no port tensor for flax leaf {where}")
-        new = _leaf_to_torch(module, key, value)
-        if new.shape != target.shape:
-            raise ValueError(f"{where}: flax {tuple(new.shape)} vs port "
-                             f"{tuple(target.shape)}")
-        with torch.no_grad():
-            target.copy_(new)
-        loaded.add(id(target))
+        out[prefix + attr] = _leaf_to_torch(module, key, value)
+
+
+def tree_to_torch(module: nn.Module, tree: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax tree of numpy leaves (parameters, batch statistics, or any
+    tree of the same layout, such as gradients) as {state_dict name of
+    `module`: tensor in the port's layout}. Copies nothing into `module`."""
+    out: Dict[str, torch.Tensor] = {}
+    _walk(module, tree, "", "", out)
+    return out
 
 
 def variables_to_torch(module: nn.Module, params: Mapping,
@@ -65,12 +68,19 @@ def variables_to_torch(module: nn.Module, params: Mapping,
     collection, numpy leaves) into `module`, whose structure mirrors the
     flax module's. With `strict`, every parameter and persistent buffer of
     `module` must be covered by the tree. Returns `module`."""
-    loaded: set = set()
+    state = module.state_dict(keep_vars=True)
+    loaded = set()
     for tree in (params, batch_stats or {}, buffers or {}):
-        _load(module, tree, "", loaded)
+        for name, new in tree_to_torch(module, tree).items():
+            target = state[name]
+            if new.shape != target.shape:
+                raise ValueError(f"{name}: flax {tuple(new.shape)} vs port "
+                                 f"{tuple(target.shape)}")
+            with torch.no_grad():
+                target.copy_(new)
+            loaded.add(name)
     if strict:
-        missing = [n for n, t in module.state_dict(keep_vars=True).items()
-                   if id(t) not in loaded]
+        missing = [n for n in state if n not in loaded]
         if missing:
             raise KeyError(f"port tensors not in the flax tree: {missing[:8]}"
                            f"{' ...' if len(missing) > 8 else ''}")

@@ -1,10 +1,11 @@
-"""Synthetic posed-RGB fragments for smoke runs and tests (own copy of the
-inference inputs of eprecon_tpu/data/synthetic.py:230 make_fragment).
+"""Synthetic posed-RGBD fragments for smoke runs, tests and the training
+step (own copy of eprecon_tpu/data/synthetic.py:109-299 make_fragment).
 
 A room with a floor and a few boxes, cameras on an arc looking at its
-centre, images rendered analytically by ray casting, all in numpy. The GT
-TSDF / label volumes of the JAX version feed training and come with the
-training slice.
+centre, depth, images and per-pixel labels rendered analytically by ray
+casting in numpy; the GT TSDF at three pyramid levels is fused from the
+depths with ops/tsdf_fusion.py (plain torch on the CPU), the voxel labels
+come from the boxes.
 """
 from __future__ import annotations
 
@@ -12,9 +13,12 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from eprecon_tpu_torch.ops import camera as cam
+from eprecon_tpu_torch.ops import tsdf_fusion
 
+FLOOR_CLASS = 2               # nyu40 floor
 THING_CLASSES = [4, 5, 6, 7]  # bed, chair, sofa, table
 
 
@@ -67,7 +71,8 @@ def _ray_box(origins, dirs, lo, hi):
 
 def render_view(scene: Scene, intr: np.ndarray, pose: np.ndarray,
                 hw: Tuple[int, int], max_depth: float = 4.0):
-    """Analytic ray cast. Returns (depth [H, W] m, rgb [H, W, 3] BGR float)."""
+    """Analytic ray cast. Returns (depth [H, W] m, rgb [H, W, 3] BGR float,
+    semantic [H, W] nyu40 id, instance [H, W] id; 0 where depth is 0)."""
     h, w = hw
     ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
     dirs_cam = np.stack([(xs - intr[0, 2]) / intr[0, 0],
@@ -93,12 +98,21 @@ def render_view(scene: Scene, intr: np.ndarray, pose: np.ndarray,
     z = best_t * dirs_cam[:, 2]
     z = np.where(np.isfinite(z) & (z <= max_depth), z, 0.0)
     rgb = np.zeros((dirs.shape[0], 3))
+    sem = np.zeros(dirs.shape[0], np.int32)
+    ins = np.zeros(dirs.shape[0], np.int32)
     rgb[best_obj == -2] = scene.floor_color
+    sem[best_obj == -2] = FLOOR_CLASS
+    ins[best_obj == -2] = FLOOR_CLASS  # stuff instance id = class id
     for bi, box in enumerate(scene.boxes):
         rgb[best_obj == bi] = box.color
+        sem[best_obj == bi] = box.cls
+        ins[best_obj == bi] = box.instance
     rgb[best_obj == -1] = 30.0
+    sem[z <= 0] = 0
+    ins[z <= 0] = 0
     return (z.reshape(h, w).astype(np.float32),
-            rgb.reshape(h, w, 3).astype(np.float32))
+            rgb.reshape(h, w, 3).astype(np.float32),
+            sem.reshape(h, w), ins.reshape(h, w))
 
 
 def orbit_poses(n_views: int, radius: float = 2.2, height: float = 1.4,
@@ -123,13 +137,35 @@ def orbit_poses(n_views: int, radius: float = 2.2, height: float = 1.4,
     return np.stack(poses).astype(np.float32)
 
 
+def voxel_labels(scene: Scene, origin: np.ndarray, voxel_size: float,
+                 dim: Tuple[int, int, int]):
+    """Semantic / instance ids of the voxels near each object's surface:
+    a band around the floor, each box grown by 1.5 voxels (later boxes
+    win)."""
+    axes = [origin[i] + voxel_size * (np.arange(dim[i]) + 0.5) for i in range(3)]
+    pts = np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1)
+    sem = np.zeros(dim, np.int32)
+    ins = np.zeros(dim, np.int32)
+    near_floor = np.abs(pts[..., 2] - scene.floor_z) < 1.5 * voxel_size
+    sem[near_floor] = FLOOR_CLASS
+    ins[near_floor] = FLOOR_CLASS
+    for box in scene.boxes:
+        m = 1.5 * voxel_size
+        inside = ((pts >= box.lo - m) & (pts <= box.hi + m)).all(axis=-1)
+        sem[inside] = box.cls
+        ins[inside] = box.instance
+    return sem, ins
+
+
 def make_fragment(n_views: int = 9, image_hw: Tuple[int, int] = (480, 640),
                   n_vox: Tuple[int, int, int] = (96, 96, 96),
                   voxel_size: float = 0.04, seed: int = 0,
                   start_angle: float = 0.0,
                   scene: Optional[Scene] = None) -> Dict[str, np.ndarray]:
-    """One fragment: BGR images, poses, per-scale projections, the
-    fragment origin and the aligned-camera transform."""
+    """One fragment: BGR images, depths, poses, per-scale projections, the
+    fragment origin, the aligned-camera transform and the GT: tsdf_levels /
+    occ_levels (finest first, 3 levels), semantic and instance [n_vox]
+    (only where the finest level is occupied)."""
     if scene is None:
         scene = make_scene(seed)
     h, w = image_hw
@@ -138,8 +174,8 @@ def make_fragment(n_views: int = 9, image_hw: Tuple[int, int] = (480, 640),
                     np.float32)
     poses = orbit_poses(n_views, start=start_angle)
     views = [render_view(scene, intr, poses[v], image_hw) for v in range(n_views)]
-    depths = np.stack([d for d, _ in views])
-    imgs = np.stack([rgb for _, rgb in views])
+    depths = np.stack([v[0] for v in views])
+    imgs = np.stack([v[1] for v in views])
 
     # fragment origin: the view-centroid window, snapped to 8 voxels
     centers = poses[:, :3, 3].mean(0)
@@ -148,9 +184,24 @@ def make_fragment(n_views: int = 9, image_hw: Tuple[int, int] = (480, 640),
     origin = (np.round(origin / (voxel_size * 8)) * (voxel_size * 8)
               ).astype(np.float32)
     intrinsics = np.stack([intr] * n_views)
+
+    # GT TSDF at 3 pyramid levels (reference datasets/transforms.py:281-298)
+    tsdf_levels, occ_levels = [], []
+    for lvl in range(3):
+        t, wt = tsdf_fusion.fuse_frames(
+            torch.from_numpy(depths), torch.from_numpy(intrinsics),
+            torch.from_numpy(poses), torch.from_numpy(origin),
+            tuple(v // 2 ** lvl for v in n_vox), voxel_size * 2 ** lvl,
+            margin=3)
+        tsdf_levels.append(t.numpy())
+        occ_levels.append(tsdf_fusion.occupancy_from_tsdf(t, wt).numpy())
+    sem_vol, ins_vol = voxel_labels(scene, origin, voxel_size, n_vox)
     return dict(
         imgs=imgs, depths=depths, intrinsics=intrinsics, poses=poses,
         vol_origin_partial=origin,
+        tsdf_levels=tsdf_levels, occ_levels=occ_levels,
+        semantic=np.where(occ_levels[0], sem_vol, 0),
+        instance=np.where(occ_levels[0], ins_vol, 0),
         proj_matrices=cam.projection_matrices(intrinsics, poses, stride=4,
                                               n_scales=3),
         world_to_aligned_camera=cam.world_to_aligned_camera(

@@ -44,7 +44,7 @@ def fragment_forward(model: EPRecon, cfg: Config, imgs, frag, rec_state,
                      pmap_state):
     """The complete per-fragment inference program: model forward +
     panoptic post-processing + direct-substitute global fusion."""
-    outputs, new_rec = model(imgs, frag, rec_state)
+    outputs, _, new_rec = model(imgs, frag, rec_state)
     seg = panoptic_inference(outputs["pred_logits"], outputs["pred_masks"],
                              outputs["panoptic_valid"])
     seg_window = sp.sparse_to_dense(

@@ -14,7 +14,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from eprecon_tpu_torch.models.layers import Conv, Dense, LayerNorm, mask3
+from eprecon_tpu_torch.models.layers import (Conv, Dense, LayerNorm, mask3,
+                                             update_running_stats)
 
 BF16 = torch.bfloat16
 
@@ -44,7 +45,11 @@ class MaskedLayerNorm3d(nn.Module):
 class MaskedBatchNorm3d(nn.Module):
     """BatchNorm over the active voxels of a dense volume (== BatchNorm1d
     over the sparse active set). f32 statistics, normalisation in the
-    input's dtype, as in the JAX module."""
+    input's dtype, as in the JAX module; in training mode with batch
+    statistics the running statistics (of the active voxels) follow the
+    JAX module's update, momentum 0.9."""
+
+    momentum = 0.9
 
     def __init__(self, c: int, use_running_average: bool = False,
                  eps: float = 1e-5):
@@ -65,6 +70,8 @@ class MaskedBatchNorm3d(nn.Module):
             n = w.sum().clamp(min=1.0)
             mean = (x32 * w).sum(dims) / n
             var = (w * (x32 - mean).square()).sum(dims) / n
+            if self.training:
+                update_running_stats(self, mean, var)
         dt = x.dtype
         y = ((x - mean.to(dt)) * torch.rsqrt(var + self.eps).to(dt)
              * self.weight.to(dt) + self.bias.to(dt))

@@ -1,13 +1,16 @@
 """EPRecon core network: occupancy init -> coarse-to-fine TSDF -> panoptic
-(port of eprecon_tpu/models/eprecon.py, inference path; reference
-models/neucon_network.py:25-624 and models/neuralrecon.py:19-86).
+(port of eprecon_tpu/models/eprecon.py, forward and training losses;
+reference models/neucon_network.py:25-699 and models/neuralrecon.py:19-86).
 
 Every per-stage computation runs on the fragment's dense window (24^3 /
 48^3 / 96^3) with an active-voxel mask; sparse capacity-padded sets appear
 only at the panoptic stage. Batch = 1 fragment. The dtype plan is the JAX
 package's: back-projected volumes bf16, 3D convs bf16, tsdf/occ heads f32,
 panoptic transfer and mask-feature LayerNorm bf16. BatchNorm uses batch
-statistics at inference (the reference's eval semantics).
+statistics at inference (the reference's eval semantics). With `targets`
+the forward also returns the losses of a training step: occupancy init,
+tsdf/occ per stage against the GT fused into per-level target volumes,
+and the panoptic set criterion.
 
 Channel plan (alpha=1):
   ch_init     = [80, 40, 24]     back-projected image feats per stage
@@ -17,7 +20,7 @@ Channel plan (alpha=1):
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, NamedTuple, Sequence, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -29,14 +32,20 @@ from eprecon_tpu_torch.models import dense3d
 from eprecon_tpu_torch.models.backbone import MnasMulti, get_depths
 from eprecon_tpu_torch.models.blocks import Linear4xTrans
 from eprecon_tpu_torch.models.dense3d import SubMConv3dDense
-from eprecon_tpu_torch.models.gru_fusion import DenseGlobalLevel, DenseGRUFusion
+from eprecon_tpu_torch.models.gru_fusion import (DenseGlobalLevel,
+                                                 DenseGRUFusion,
+                                                 DenseTargetLevel,
+                                                 fuse_target_window)
 from eprecon_tpu_torch.models.layers import LayerNorm, init_module, mask3
 from eprecon_tpu_torch.models.occupancy_init import OccupancyInitialization
+from eprecon_tpu_torch.models.panoptic.criterion import (build_targets,
+                                                         set_criterion)
 from eprecon_tpu_torch.models.panoptic.decoder import MaskedTransformerDecoder
 from eprecon_tpu_torch.models.unet_dense import DenseUNet
 from eprecon_tpu_torch.ops import sparse as sp
 from eprecon_tpu_torch.ops.back_project import back_project_window
 from eprecon_tpu_torch.ops.grid import dense_coords
+from eprecon_tpu_torch.train.losses import occupancy_init_loss, tsdf_occ_loss
 
 BF16 = torch.bfloat16
 
@@ -51,9 +60,19 @@ class FragmentInputs(NamedTuple):
     rel_origins: np.ndarray               # [n_stages, 3] int
 
 
+class FragmentTargets(NamedTuple):
+    """Dense GT windows per pyramid level l (0 = finest), as the data
+    pipeline makes them (reference datasets/transforms.py:262-365)."""
+    tsdf: Tuple[torch.Tensor, ...]      # ([96^3], [48^3], [24^3]) f32
+    occ: Tuple[torch.Tensor, ...]       # bool, same shapes
+    semantic: Optional[torch.Tensor]    # [96^3] nyu40 ids (finest)
+    instance: Optional[torch.Tensor]    # [96^3] instance ids (finest)
+
+
 class RecurrentState(NamedTuple):
     """Cross-fragment state of one scene stream; reset at scene change."""
     gmaps: Tuple[DenseGlobalLevel, ...]  # per stage (0 = coarse)
+    tmaps: Tuple[DenseTargetLevel, ...]  # GT tsdf target volumes per stage
 
 
 def channel_plan(cfg: ModelConfig):
@@ -73,12 +92,13 @@ def gru_channel_plan(cfg: ModelConfig):
 def make_recurrent_state(cfg: ModelConfig, device=None) -> RecurrentState:
     gru_ch = gru_channel_plan(cfg)
     dtype = BF16 if cfg.global_dtype == "bfloat16" else torch.float32
-    gmaps = []
+    gmaps, tmaps = [], []
     for i in range(cfg.n_layer):
         interval = 2 ** (cfg.n_scales - i)
         extent = tuple(v // interval for v in cfg.global_extent)
         gmaps.append(DenseGlobalLevel.empty(extent, gru_ch[i], dtype, device))
-    return RecurrentState(tuple(gmaps))
+        tmaps.append(DenseTargetLevel.empty(extent, device))
+    return RecurrentState(tuple(gmaps), tuple(tmaps))
 
 
 class SparseConvResidual(nn.Module):
@@ -165,15 +185,19 @@ class EPReconCore(nn.Module):
     def forward(self, features2d: Sequence[torch.Tensor],
                 features_occ_pano: Sequence[torch.Tensor],
                 frag: FragmentInputs, state: RecurrentState,
-                debug_outputs: bool = False):
+                targets: Optional[FragmentTargets] = None,
+                only_train_init: bool = False, debug_outputs: bool = False):
         """features2d / features_occ_pano: 3 tensors [V, H_s, W_s, C_s]
         fine -> coarse, from the reconstruction and occupancy/panoptic
-        backbones. Returns (outputs dict, new RecurrentState); the global
-        maps in `state` are updated in place."""
+        backbones. Returns (outputs dict, losses dict, new RecurrentState);
+        the global maps in `state` (and, with `targets`, its target maps)
+        are updated in place. Losses are computed only with `targets`;
+        `only_train_init` stops after the occupancy-init loss."""
         cfg = self.cfg
         n_scales = cfg.n_scales
         ch_init, channels, _ = channel_plan(cfg)
         outputs: Dict[str, Any] = {}
+        losses: Dict[str, torch.Tensor] = {}
         f2d = [f[:, None] for f in features2d]   # [V, 1, H, W, C]
         fop = [f[:, None] for f in features_occ_pano]
         origin_b = frag.vol_origin_partial[None, :]
@@ -191,6 +215,16 @@ class EPReconCore(nn.Module):
         if debug_outputs:
             outputs["occ_init_logits"] = occ_logits
             outputs["occ_init_mask"] = init_mask
+        if targets is not None:
+            t_init = (1.0 - targets.tsdf[init_scale].abs()).clamp(0.0, 1.0)
+            l_init = occupancy_init_loss(occ_logits.reshape(-1),
+                                         t_init.reshape(-1),
+                                         targets.occ[init_scale].reshape(-1),
+                                         init_mask.reshape(-1))
+            losses["occupancy_initialization_loss"] = torch.where(
+                frag_ok, l_init, 0.0 * occ_logits.sum())
+        if only_train_init:
+            return outputs, losses, state
 
         occupied = init_mask & (torch.sigmoid(occ_logits) > cfg.occ_init_threshold)
         stage_mask = dense3d.maxpool3d(occupied, 2 ** cfg.init_stage)
@@ -198,6 +232,7 @@ class EPReconCore(nn.Module):
 
         # coarse-to-fine surface reconstruction (reference :347-511)
         new_gmaps: List[DenseGlobalLevel] = []
+        new_tmaps: List[DenseTargetLevel] = []
         pano_feats_dense, pano_masks, pano_scores = [], [], []
         prev_feats = None
         for i in range(cfg.n_layer):
@@ -236,11 +271,26 @@ class EPReconCore(nn.Module):
                 outputs[f"stage_fused_{i}"] = fused
                 outputs[f"stage_union_{i}"] = union
 
+            if targets is not None:
+                tsdf_t, occ_t, tmap = fuse_target_window(
+                    state.tmaps[i], targets.tsdf[scale], targets.occ[scale],
+                    frag.rel_origins[i])
+            else:
+                tsdf_t = occ_t = None
+                tmap = state.tmaps[i]
+            new_tmaps.append(tmap)
+
             # f32 heads: in bf16 their gradient noise collapses occupancy
             # selection during training (see the JAX module)
             feat_v = fused[..., :channels[i]].float()
             tsdf = getattr(self, f"tsdf_pred_{i}")(feat_v)[..., 0]
             occ = getattr(self, f"occ_pred_{i}")(feat_v)[..., 0]
+            if targets is not None:
+                loss = tsdf_occ_loss(tsdf.reshape(-1), occ.reshape(-1),
+                                     tsdf_t.reshape(-1), occ_t.reshape(-1),
+                                     union.reshape(-1), cfg.pos_weight)
+                losses[f"tsdf_occ_loss_{i}"] = torch.where(frag_ok, loss,
+                                                           0.0 * tsdf.sum())
 
             occupancy = (occ > cfg.thresholds[i]) & union
             n_occ = occupancy.sum()
@@ -253,8 +303,10 @@ class EPReconCore(nn.Module):
 
             pano_feats_dense.append(torch.where(occupancy[..., None], fused, 0.0))
             pano_masks.append(occupancy)
-            pano_scores.append(occ)
+            # the scores order capacity overflow: no gradient through them
+            pano_scores.append(occ.detach())
             if i == cfg.n_layer - 1:
+                occ_target_fine = occ_t
                 outputs["tsdf_window"] = torch.where(occupancy, tsdf, 1.0)
                 outputs["occupancy"] = occupancy
             else:
@@ -263,7 +315,7 @@ class EPReconCore(nn.Module):
                                        dim=-1)
                 prev_feats = torch.where(occupancy[..., None], prev_feats, 0.0)
         outputs["frag_ok"] = frag_ok
-        new_state = RecurrentState(tuple(new_gmaps))
+        new_state = RecurrentState(tuple(new_gmaps), tuple(new_tmaps))
 
         # panoptic stage (reference :516-622): coarse voxels must sit on a
         # fine voxel's cell -> max-pool of the fine mask
@@ -322,7 +374,23 @@ class EPReconCore(nn.Module):
         outputs["pred_masks"] = dec_out.pred_masks[-1]
         outputs["panoptic_coords"] = fine_sv.coords
         outputs["panoptic_valid"] = fine_sv.valid
-        return outputs, new_state
+
+        # panoptic loss on the occupied GT voxels (reference :589-605)
+        if targets is not None and targets.semantic is not None:
+            fc = fine_sv.coords[:, 1:].long()
+            at = (fc[:, 0], fc[:, 1], fc[:, 2])
+            sup = fine_sv.valid & occ_target_fine[at]
+            ptargets = build_targets(
+                torch.where(sup, targets.semantic[at], 0),
+                torch.where(sup, targets.instance[at], 0), sup,
+                cfg.panoptic.max_instances, cfg.panoptic.min_instance_voxels)
+            pan = cfg.panoptic
+            pl = set_criterion(dec_out.pred_logits, dec_out.pred_masks,
+                               ptargets, pan.class_weight, pan.mask_weight,
+                               pan.dice_weight, pan.no_object_weight)
+            losses["panoptic_loss"] = torch.where(
+                frag_ok, pl, 0.0 * dec_out.pred_masks.sum())
+        return outputs, losses, new_state
 
 
 class EPRecon(nn.Module):
@@ -354,10 +422,36 @@ class EPRecon(nn.Module):
         return (imgs - self.pixel_mean) / self.pixel_std
 
     def forward(self, imgs: torch.Tensor, frag: FragmentInputs,
-                state: RecurrentState, debug_outputs: bool = False):
+                state: RecurrentState,
+                targets: Optional[FragmentTargets] = None,
+                only_train_init: bool = False, debug_outputs: bool = False):
         """imgs [V, H, W, 3] BGR (float or uint8). Returns (outputs,
-        new_state)."""
+        losses, new_state); with `targets`, losses holds the weighted
+        "total_loss" beside its terms."""
         x = self.normalize(imgs)
         feats2d = self.backbone2d(x)
         feats_op = self.backbone_occ_pano(x)
-        return self.neucon_net(feats2d, feats_op, frag, state, debug_outputs)
+        outputs, losses, new_state = self.neucon_net(
+            feats2d, feats_op, frag, state, targets, only_train_init,
+            debug_outputs)
+        if losses:
+            losses["total_loss"] = weighted_total(self.cfg, losses)
+        return outputs, losses, new_state
+
+
+LOSS_ORDER = ("occupancy_initialization_loss", "tsdf_occ_loss_0",
+              "tsdf_occ_loss_1", "tsdf_occ_loss_2", "panoptic_loss")
+
+
+def weighted_total(cfg: ModelConfig, losses: Dict[str, torch.Tensor]):
+    """The weighted sum of the loss terms, in the reference's order
+    (neuralrecon.py:79-84; eprecon.py:519-532 of the JAX package)."""
+    lw = {"occupancy_initialization_loss": 1.0,
+          "tsdf_occ_loss_0": cfg.lw[0], "tsdf_occ_loss_1": cfg.lw[1],
+          "tsdf_occ_loss_2": cfg.lw[2],
+          "panoptic_loss": cfg.lw[3] if len(cfg.lw) > 3 else 1.0}
+    total = 0.0
+    for k in LOSS_ORDER:
+        if k in losses:
+            total = total + lw[k] * losses[k]
+    return total

@@ -7,7 +7,8 @@ branches) over the union of current and global voxels, and written back.
 Maps are [Gx, Gy, Gz, C] (the JAX package's [Gx, Gy, Gz*C] lane-flattening
 is a TPU layout and is not kept). Window origins are host integers, so
 slicing needs no device sync; the writeback is in place, which stands for
-the JAX version's donated buffers.
+the JAX version's donated buffers. GT TSDF windows fuse into a parallel
+dense target volume per level (`DenseTargetLevel`) for the training loss.
 """
 from __future__ import annotations
 
@@ -35,6 +36,20 @@ class DenseGlobalLevel:
         return DenseGlobalLevel(
             torch.zeros(*extent, channels, dtype=dtype, device=device),
             torch.zeros(*extent, dtype=torch.bool, device=device))
+
+
+@dataclass
+class DenseTargetLevel:
+    """Dense global GT-TSDF volume at one pyramid level (reference
+    target_tsdf_volume)."""
+    tsdf: torch.Tensor  # [Gx, Gy, Gz] f32 (init 1)
+    occ: torch.Tensor   # [Gx, Gy, Gz] bool
+
+    @staticmethod
+    def empty(extent: Tuple[int, int, int], device=None) -> "DenseTargetLevel":
+        return DenseTargetLevel(torch.ones(extent, device=device),
+                                torch.zeros(extent, dtype=torch.bool,
+                                            device=device))
 
 
 def _clamp_origin(rel_origin: Sequence[int], extent, window) -> Tuple[int, ...]:
@@ -85,9 +100,29 @@ class DenseGRUFusion(nn.Module):
         fv = self.gru_voxel(h[..., :cv], x[..., :cv], union)
         fi = self.gru_img(h[..., cv:], x[..., cv:], union)
         fused = torch.where(union[..., None], torch.cat([fv, fi], dim=-1), 0)
-        update_window(gmap.feats, fused.to(gmap.feats.dtype), rel_origin)
+        # truncated BPTT, as the reference detaches its global volumes
+        # between fragments: the map takes no gradient and holds no graph
+        update_window(gmap.feats, fused.detach().to(gmap.feats.dtype),
+                      rel_origin)
         update_window(gmap.mask, union, rel_origin)
         return fused, union, gmap
+
+
+def fuse_target_window(tmap: DenseTargetLevel, tsdf_window: torch.Tensor,
+                       occ_window: torch.Tensor, rel_origin: Sequence[int]):
+    """Fuse a fragment's GT window into the global target volume, in
+    place, and return the fused window (reference gru_fusion.py:101-110:
+    the current fragment overwrites where it is occupied).
+    Returns (tsdf [X, Y, Z], occ [X, Y, Z], tmap)."""
+    window = tuple(tsdf_window.shape)
+    g_tsdf = slice_window(tmap.tsdf, rel_origin, window)
+    g_occ = slice_window(tmap.occ, rel_origin, window)
+    fused = torch.where(occ_window, tsdf_window,
+                        torch.where(g_occ, g_tsdf, 1.0))
+    fused_occ = occ_window | g_occ
+    update_window(tmap.tsdf, fused, rel_origin)
+    update_window(tmap.occ, fused_occ, rel_origin)
+    return fused, fused_occ, tmap
 
 
 # ---------------------------------------------------------------------------

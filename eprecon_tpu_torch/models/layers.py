@@ -157,8 +157,11 @@ class LayerNorm(nn.Module):
 class BatchNorm(nn.Module):
     """flax nn.BatchNorm over all axes but the last. Batch statistics by
     default (the reference's inference semantics); running statistics with
-    `use_running_average`. Running statistics are not updated: this port
-    serves, it does not train."""
+    `use_running_average`. In training mode with batch statistics the
+    running statistics follow flax's update (`update_running_stats`,
+    momentum 0.99); in eval mode nothing changes."""
+
+    momentum = 0.99
 
     def __init__(self, features: int, use_running_average: bool = False,
                  eps: float = 1e-5, dtype: Dtype = None):
@@ -174,8 +177,20 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         else:
             mean, var = _fast_stats(x, tuple(range(x.ndim - 1)))
+            if self.training:
+                update_running_stats(self, mean, var)
         return _affine(x, mean, var, self.weight, self.bias, self.eps,
                        self.dtype)
+
+
+@torch.no_grad()
+def update_running_stats(norm: nn.Module, mean: torch.Tensor,
+                         var: torch.Tensor):
+    """flax's rule: ra = m * ra + (1 - m) * batch, m = norm.momentum, with
+    the biased batch variance the layer normalised with."""
+    m = norm.momentum
+    norm.running_mean.copy_(m * norm.running_mean + (1 - m) * mean)
+    norm.running_var.copy_(m * norm.running_var + (1 - m) * var)
 
 
 def init_module(module: nn.Module, generator: torch.Generator) -> nn.Module:

@@ -6,15 +6,19 @@ sample the view's features bilinearly (grid_sample align_corners=True,
 zero padding), drop out-of-frustum views, reduce across views.
 
 Two public functions, each with a plain PyTorch version and a CUDA kernel
-(csrc/back_project.cu):
+(csrc/back_project.cu), forward and backward:
   * back_project_window   — mean over visible views on a dense window
   * back_project_variance — cross-view variance on a coordinate list
 
-A tensor on the CPU takes the plain version; a CUDA tensor launches the
-kernel or raises. The plain version does the kernel's arithmetic in the
-kernel's order (f32 sums over bf16 tables, f32 projection without fused
-multiply-adds), so on the card the two agree bit for bit. The JAX version
-sums bf16 terms in bf16; the port keeps the sums in f32 and rounds once.
+Both are torch.autograd.Functions whose backward gives the features'
+gradient (the counterpart of the JAX package's gather adjoints). A tensor
+on the CPU takes the plain versions; a CUDA tensor launches the kernels or
+raises. The plain forward does the kernel's arithmetic in the kernel's
+order (f32 sums over bf16 tables, f32 projection without fused
+multiply-adds), so on the card the two agree bit for bit; the backwards
+scatter with f32 atomics (kernel) or index_add_ (plain) and agree to f32
+rounding. The JAX version sums bf16 terms in bf16 and accumulates its
+gradient in bf16; the port keeps both in f32 and rounds once.
 """
 from __future__ import annotations
 
@@ -32,8 +36,10 @@ from eprecon_tpu_torch.ops.grid import dense_coords
 
 WINDOW_MEAN, VARIANCE = 0, 1
 
-# kernel launches by (mode, voxels, channels); read by the chip smoke run
+# kernel launches by (mode, voxels, channels), forward and backward; read
+# by the chip smoke run
 launch_counts: collections.Counter = collections.Counter()
+backward_launch_counts: collections.Counter = collections.Counter()
 
 
 # ---------------------------------------------------------------------------
@@ -81,16 +87,40 @@ def bilinear_sample_flat(table: torch.Tensor, row_offset, u: torch.Tensor,
     return torch.where(m[:, None], total, 0.0)
 
 
+def scatter_corners(grad_table: torch.Tensor, row_offset, u: torch.Tensor,
+                    v: torch.Tensor, m: torch.Tensor, d: torch.Tensor,
+                    h: int, w: int) -> torch.Tensor:
+    """The adjoint of `bilinear_sample_flat` for the table: add each
+    sample's cotangent d [N, C], times its 4 corner weights, to the corner
+    rows of grad_table [B*H*W, C] f32, in place."""
+    u0 = torch.floor(u)
+    v0 = torch.floor(v)
+    du = u - u0
+    dv = v - v0
+    iu = torch.where(m, u0, 0).long()
+    iv = torch.where(m, v0, 0).long()
+    for cy, cx in ((0, 0), (0, 1), (1, 0), (1, 1)):
+        pu, pv = iu + cx, iv + cy
+        wgt = (du if cx else 1 - du) * (dv if cy else 1 - dv)
+        wgt = torch.where((pu <= w - 1) & (pv <= h - 1) & m, wgt, 0.0)
+        idx = row_offset + pv.clamp(max=h - 1) * w + pu.clamp(max=w - 1)
+        grad_table.index_add_(0, idx, wgt[:, None] * d)
+    return grad_table
+
+
 def _window_world(dim, interval, origin, voxel_size, device):
     coords = dense_coords(dim, device).reshape(-1, 3).float() * interval
-    return coords * voxel_size + origin[0]
+    return coords * voxel_size + origin.reshape(-1, 3)[0]
 
 
-def back_project_window_plain(dim, interval, origin, voxel_size, feats, proj):
+def back_project_window_plain(dim, interval, origin, voxel_size, feats, proj,
+                              table_dtype: torch.dtype = torch.bfloat16):
+    """The plain window mean. The kernel's table is bf16; `table_dtype`
+    f32 gives the same function on an f32 table (for gradient checks)."""
     vv, _, h, w, c = feats.shape
     world = _window_world(dim, interval, origin.float(), voxel_size,
                           feats.device)
-    table = feats[:, 0].reshape(vv, h * w, c).to(torch.bfloat16)
+    table = feats[:, 0].reshape(vv, h * w, c).to(table_dtype)
     total = torch.zeros(world.shape[0], c, device=feats.device)
     count = torch.zeros(world.shape[0], device=feats.device)
     for vi in range(vv):
@@ -98,29 +128,77 @@ def back_project_window_plain(dim, interval, origin, voxel_size, feats, proj):
         total = total + bilinear_sample_flat(table[vi], 0, u, v, m, h, w)
         count = count + m.float()
     mean = total / count.clamp(min=1.0)[:, None]
-    return mean.to(torch.bfloat16).reshape(*dim, c), count.reshape(dim)
+    return mean.to(table_dtype).reshape(*dim, c), count.reshape(dim)
 
 
-def back_project_variance_plain(coords, valid, origin, voxel_size, feats, proj):
+def window_backward_plain(dim, interval, origin, voxel_size, proj, count, ct,
+                          h: int, w: int) -> torch.Tensor:
+    """Gradient of the window mean for its [V, H*W, C] table, f32, given
+    the mean's cotangent ct [X, Y, Z, C] and the forward's view count."""
+    vv, c = proj.shape[0], ct.shape[-1]
+    world = _window_world(dim, interval, origin.float(), voxel_size, ct.device)
+    d = ct.reshape(-1, c).float() / count.reshape(-1, 1).clamp(min=1.0)
+    grad = torch.zeros(vv, h * w, c, device=ct.device)
+    for vi in range(vv):
+        u, v, m = project_to_view(world, proj[vi, 0].float(), h, w)
+        scatter_corners(grad[vi], 0, u, v, m, d, h, w)
+    return grad
+
+
+def _variance_views(coords, valid, origin, voxel_size, feats, proj):
+    """Per view: (u, v, visible mask, bilinear sample [K, C] f32), with the
+    table rows' batch offsets; shared by the variance and its backward."""
     vv, bb, h, w, c = feats.shape
     b = coords[:, 0].long()
     world = coords[:, 1:].float() * voxel_size + origin.float()[b]
     table = feats.reshape(vv, bb * h * w, c)
     row_offset = b * (h * w)
-    s1 = torch.zeros(coords.shape[0], c, device=feats.device)
-    s2 = torch.zeros_like(s1)
-    count = torch.zeros(coords.shape[0], device=feats.device)
     for vi in range(vv):
         u, v, m = project_to_view(world, proj[vi].float()[b], h, w)
         m = m & valid
-        s = bilinear_sample_flat(table[vi], row_offset, u, v, m, h, w)
+        yield u, v, m, bilinear_sample_flat(table[vi], row_offset, u, v, m,
+                                            h, w), row_offset
+
+
+def _variance_sums(coords, valid, origin, voxel_size, feats, proj):
+    c = feats.shape[-1]
+    s1 = torch.zeros(coords.shape[0], c, device=feats.device)
+    s2 = torch.zeros_like(s1)
+    count = torch.zeros(coords.shape[0], device=feats.device)
+    for _, _, m, s, _ in _variance_views(coords, valid, origin, voxel_size,
+                                         feats, proj):
         s1 = s1 + s
         s2 = s2 + s * s
         count = count + m.float()
+    return s1, s2, count
+
+
+def back_project_variance_plain(coords, valid, origin, voxel_size, feats, proj):
+    s1, s2, count = _variance_sums(coords, valid, origin, voxel_size, feats,
+                                   proj)
     denom = count.clamp(min=1.0)[:, None]
     mean = s1 / denom
     var = (s2 / denom - mean * mean).clamp(min=0.0)
     return var.to(feats.dtype), count
+
+
+def variance_backward_plain(coords, valid, origin, voxel_size, feats, proj,
+                            count, ct) -> torch.Tensor:
+    """Gradient of the variance for its [V, B*H*W, C] table, f32, given
+    the variance's cotangent ct [K, C] and the forward's view count:
+    ds_v = g * 2 (s_v - mean) / n per visible sample, g = ct where
+    s2/n - mean^2 >= 0 (the gradient of torch's clamp) and 0 elsewhere,
+    scattered through the sample's corner weights."""
+    vv, bb, h, w, c = feats.shape
+    s1, s2, _ = _variance_sums(coords, valid, origin, voxel_size, feats, proj)
+    denom = count.clamp(min=1.0)[:, None]
+    mean = s1 / denom
+    g = torch.where(s2 / denom - mean * mean >= 0, 2 * ct.float() / denom, 0.0)
+    grad = torch.zeros(vv, bb * h * w, c, device=feats.device)
+    for vi, (u, v, m, s, row_offset) in enumerate(_variance_views(
+            coords, valid, origin, voxel_size, feats, proj)):
+        scatter_corners(grad[vi], row_offset, u, v, m, g * (s - mean), h, w)
+    return grad
 
 
 # ---------------------------------------------------------------------------
@@ -265,6 +343,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.bp_forward.restype = ctypes.c_int
         lib.bp_occupancy.argtypes = [i, i, i, i, ctypes.POINTER(i)]
         lib.bp_occupancy.restype = ctypes.c_int
+        lib.bp_backward.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
+                                    ctypes.c_longlong, i, i, i, i,
+                                    ctypes.c_float, i, p, p]
+        lib.bp_backward.restype = ctypes.c_int
     return lib
 
 
@@ -331,8 +413,51 @@ def _launch(mode: int, table: torch.Tensor, proj: torch.Tensor,
     return out, count
 
 
+def _launch_backward(mode: int, table: Optional[torch.Tensor],
+                     proj: torch.Tensor, origin: torch.Tensor,
+                     coords: Optional[torch.Tensor],
+                     valid: Optional[torch.Tensor], ct: torch.Tensor,
+                     count: torch.Tensor, v: int, h: int, w: int,
+                     dims: Sequence[int] = (0, 0, 0), interval: int = 1,
+                     voxel_size: float = 1.0) -> torch.Tensor:
+    """The backward kernel: the table gradient [V, B*H*W, C] f32 given the
+    cotangent ct [N, C] bf16 and the forward's count [N] f32. table: the
+    bf16 [V, B*H*W, C] features (variance only; the mean does not read
+    them); proj, origin, coords, valid as for `_launch`."""
+    dev = ct.device
+    if dev.type != "cuda":
+        raise ValueError(f"back-projection kernel needs CUDA tensors, got {dev}")
+    n, c = ct.shape
+    bb = proj.shape[1]
+    if c % 8:
+        raise ValueError(f"channels {c} not a multiple of 8")
+    _check("ct", ct, torch.bfloat16, (n, c), dev)
+    _check("count", count, torch.float32, (n,), dev)
+    _check("proj", proj, torch.float32, (v, bb, 16), dev)
+    _check("origin", origin, torch.float32, (bb, 3), dev)
+    if mode == VARIANCE:
+        _check("table", table, torch.bfloat16, (v, bb * h * w, c), dev)
+        _check("coords", coords, torch.int32, (n, 4), dev)
+        _check("valid", valid, torch.uint8, (n,), dev)
+    grad = torch.zeros(v, bb * h * w, c, dtype=torch.float32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    rc = _library().bp_backward(
+        ptr(table), proj.data_ptr(), origin.data_ptr(), ptr(coords),
+        ptr(valid), ct.data_ptr(), count.data_ptr(), v, bb, h, w, c, n,
+        dims[0], dims[1], dims[2], interval, float(voxel_size), mode,
+        grad.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"back_project backward launch failed: CUDA error {rc}")
+    backward_launch_counts[(mode, n, c)] += 1
+    return grad
+
+
 def total_launches() -> int:
     return sum(launch_counts.values())
+
+
+def total_backward_launches() -> int:
+    return sum(backward_launch_counts.values())
 
 
 def occupancy(plan: LaunchPlan, mode: int) -> int:
@@ -371,18 +496,51 @@ def back_project_window(dim: Tuple[int, int, int], interval: int,
     `_launch`.
     Returns (mean [X, Y, Z, C] bf16, count [X, Y, Z] f32).
     """
-    if _route(feats, stats) == "cpu":
-        return back_project_window_plain(dim, interval, origin, voxel_size,
-                                         feats, proj)
-    vv, bb, h, w, c = feats.shape
-    if bb != 1:
-        raise ValueError("back_project_window takes one batch element")
-    table = feats.reshape(vv, h * w, c).to(torch.bfloat16).contiguous()
-    mean, count = _launch(
-        WINDOW_MEAN, table, proj.float().reshape(vv, 1, 16).contiguous(),
-        origin.float().reshape(1, 3).contiguous(), None, None,
-        dim[0] * dim[1] * dim[2], h, w, dim, interval, voxel_size, stats)
-    return mean.reshape(*dim, c), count.reshape(dim)
+    _route(feats, stats)
+    return _WindowMean.apply(feats, origin, proj, tuple(dim), interval,
+                             voxel_size, stats)
+
+
+class _WindowMean(torch.autograd.Function):
+    """back_project_window with the gradient for `feats`: plain forward and
+    backward for CPU tensors, the forward and backward kernels for CUDA
+    ones. The count gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, feats, origin, proj, dim, interval, voxel_size, stats):
+        vv, bb, h, w, c = feats.shape
+        if feats.device.type == "cpu":
+            mean, count = back_project_window_plain(dim, interval, origin,
+                                                    voxel_size, feats, proj)
+        else:
+            if bb != 1:
+                raise ValueError("back_project_window takes one batch element")
+            proj = proj.float().reshape(vv, 1, 16).contiguous()
+            origin = origin.float().reshape(1, 3).contiguous()
+            table = feats.reshape(vv, h * w, c).to(torch.bfloat16).contiguous()
+            mean, count = _launch(WINDOW_MEAN, table, proj, origin, None, None,
+                                  math.prod(dim), h, w, dim, interval,
+                                  voxel_size, stats)
+            mean, count = mean.reshape(*dim, c), count.reshape(dim)
+        ctx.mark_non_differentiable(count)
+        ctx.save_for_backward(origin, proj, count)
+        ctx.args = (dim, interval, voxel_size, feats.shape, feats.dtype)
+        return mean, count
+
+    @staticmethod
+    def backward(ctx, ct, _):
+        origin, proj, count = ctx.saved_tensors
+        dim, interval, voxel_size, shape, dtype = ctx.args
+        vv, _, h, w, c = shape
+        if ct.device.type == "cpu":
+            grad = window_backward_plain(dim, interval, origin, voxel_size,
+                                         proj, count, ct, h, w)
+        else:
+            grad = _launch_backward(
+                WINDOW_MEAN, None, proj, origin, None, None,
+                ct.reshape(-1, c).to(torch.bfloat16).contiguous(),
+                count.reshape(-1), vv, h, w, dim, interval, voxel_size)
+        return grad.to(dtype).reshape(shape), None, None, None, None, None, None
 
 
 def back_project_variance(coords: torch.Tensor, valid: torch.Tensor,
@@ -398,16 +556,50 @@ def back_project_variance(coords: torch.Tensor, valid: torch.Tensor,
     Returns (variance [K, C] in feats' dtype, count [K] f32). The kernel
     takes bf16 features, the dtype of the path.
     """
-    if _route(feats, stats) == "cpu":
-        return back_project_variance_plain(coords, valid, origin, voxel_size,
-                                           feats, proj)
-    vv, bb, h, w, c = feats.shape
-    if feats.dtype != torch.bfloat16:
-        raise ValueError(f"variance kernel takes bf16 features, got {feats.dtype}")
-    return _launch(
-        VARIANCE, feats.reshape(vv, bb * h * w, c).contiguous(),
-        proj.float().reshape(vv, bb, 16).contiguous(),
-        origin.float().reshape(bb, 3).contiguous(),
-        coords.to(torch.int32).contiguous(),
-        valid.to(torch.uint8).contiguous(), coords.shape[0], h, w,
-        voxel_size=voxel_size, stats=stats)
+    _route(feats, stats)
+    return _Variance.apply(feats, coords, valid, origin, proj, voxel_size,
+                           stats)
+
+
+class _Variance(torch.autograd.Function):
+    """back_project_variance with the gradient for `feats`, routed like
+    `_WindowMean`; the backward re-samples the features."""
+
+    @staticmethod
+    def forward(ctx, feats, coords, valid, origin, proj, voxel_size, stats):
+        vv, bb, h, w, c = feats.shape
+        if feats.device.type == "cpu":
+            table = feats
+            var, count = back_project_variance_plain(coords, valid, origin,
+                                                     voxel_size, feats, proj)
+        else:
+            if feats.dtype != torch.bfloat16:
+                raise ValueError(
+                    f"variance kernel takes bf16 features, got {feats.dtype}")
+            table = feats.reshape(vv, bb * h * w, c).contiguous()
+            proj = proj.float().reshape(vv, bb, 16).contiguous()
+            origin = origin.float().reshape(bb, 3).contiguous()
+            coords = coords.to(torch.int32).contiguous()
+            valid = valid.to(torch.uint8).contiguous()
+            var, count = _launch(VARIANCE, table, proj, origin, coords, valid,
+                                 coords.shape[0], h, w, voxel_size=voxel_size,
+                                 stats=stats)
+        ctx.mark_non_differentiable(count)
+        ctx.save_for_backward(table, coords, valid, origin, proj, count)
+        ctx.args = (voxel_size, feats.shape, feats.dtype)
+        return var, count
+
+    @staticmethod
+    def backward(ctx, ct, _):
+        table, coords, valid, origin, proj, count = ctx.saved_tensors
+        voxel_size, shape, dtype = ctx.args
+        vv, _, h, w, _ = shape
+        if ct.device.type == "cpu":
+            grad = variance_backward_plain(coords, valid, origin, voxel_size,
+                                           table, proj, count, ct)
+        else:
+            grad = _launch_backward(
+                VARIANCE, table, proj, origin, coords, valid,
+                ct.to(torch.bfloat16).contiguous(), count, vv, h, w,
+                voxel_size=voxel_size)
+        return grad.to(dtype).reshape(shape), None, None, None, None, None, None

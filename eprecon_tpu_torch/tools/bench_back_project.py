@@ -1,15 +1,17 @@
-"""Time the back-projection kernel at the four call shapes of a full-width
-fragment, on one NVIDIA GPU.
+"""Time the back-projection kernels, forward and backward, at the four call
+shapes of a full-width fragment, on one NVIDIA GPU.
 
     python eprecon_tpu_torch/tools/bench_back_project.py [--root DIR] [--out FILE]
 
-Per shape: `ms`, the kernel's own device time (mean duration of its
-`back_project_kernel` events under torch.profiler, with 128 MB written
-between launches so the tables come from device memory, as they do in a
-fragment; only a profiled window with a record of every launch counts);
-`call_ms`, the wrapper's time per call (CUDA events around a run of Python
-calls); the plain PyTorch version's and an F.grid_sample yardstick's times;
-and `bound_ms`, the least time the card could take.
+Per shape and direction: `ms`, the kernel's own device time (mean duration
+of its `back_project_kernel` / `back_project_backward_kernel` events under
+torch.profiler, with 128 MB written between launches so the tables come
+from device memory, as they do in a fragment; only a profiled window with a
+record of every launch counts); `call_ms`, the wrapper's time per call
+(CUDA events around a run of Python calls; the backward's includes zeroing
+its f32 gradient); the plain PyTorch version's and an F.grid_sample
+yardstick's times (the backward's: autograd of the yardstick for the same
+cotangent); and `bound_ms`, the least time the card could take.
 `--root` names the checkout whose eprecon_tpu_torch is timed (default:
 the one holding this file), so that two versions of the kernel can be
 timed on one card: run this file as a script, once per root. chip_smoke.py
@@ -19,6 +21,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -30,6 +33,7 @@ F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 FLUSH_BYTES = 128 << 20     # written between timed launches; L2 is 50 MB
 WINDOWS = 3                 # profiled windows tried per device time
 KERNEL = "back_project_kernel"
+BACKWARD_KERNEL = "back_project_backward_kernel"
 
 # (name, window dim, interval, proj scale, feature h, w, channels); the
 # first is the occupancy-init variance over a coordinate list, the others
@@ -63,11 +67,26 @@ class Case:
     visible: int       # visible (voxel, view) pairs
     ops_per_visible: int
     ops_per_voxel: int
+    projections: int   # passes that project every (voxel, view)
+    backward: Callable = None           # the backward kernel's wrapper
+    backward_plain: Callable = None
+    backward_library: Callable = None   # autograd of the yardstick
+    backward_bytes: int = 0
+    backward_ops: Tuple[int, int] = (0, 0)  # per visible pair x channel, per voxel x channel
 
-    def bound(self, v: int):
-        ops = (self.n * v * 22 + self.visible * self.c * self.ops_per_visible
-               + self.n * self.c * self.ops_per_voxel)
-        t_bytes = self.bytes_ / HBM_BYTES_PER_S * 1e3
+    def bound(self, v: int, direction: str = "forward"):
+        """(least ms, what bounds it): bytes over 3.35 TB/s, f32 operations
+        over 67 TFLOP/s, the larger."""
+        if direction == "forward":
+            nbytes, per_vis, per_vox, proj = (self.bytes_, self.ops_per_visible,
+                                              self.ops_per_voxel, 1)
+        else:
+            nbytes, (per_vis, per_vox), proj = (self.backward_bytes,
+                                                self.backward_ops,
+                                                self.projections)
+        ops = (proj * self.n * v * 22 + self.visible * self.c * per_vis
+               + self.n * self.c * per_vox)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / F32_OPS_PER_S * 1e3
         return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
@@ -127,15 +146,63 @@ def cases(proj_matrices, vol_origin) -> List[Case]:
             run = lambda args=args, **kw: bp.back_project_window(*args, **kw)
             plain = lambda args=args: bp.back_project_window_plain(*args)
             mode, extra_in, ops = bp.WINDOW_MEAN, 0, (9, 1)
-        visible = int(plain()[1].sum().item())
+        count = plain()[1].reshape(-1).contiguous()
+        visible = int(count.sum().item())
         feats_f32 = feats[:, 0].permute(0, 3, 1, 2).float().contiguous()
         library = (lambda f=feats_f32, p=proj[:, 0].float(), wo=world, h=h, w=w,
                    var=variance: yardstick(f, p, wo, h, w, var))
-        out.append(Case(name, mode, (n,) if variance else dim, h, w, n, c,
-                        run, plain, library,
-                        v * h * w * c * 2 + v * 64 + 12 + extra_in + n * c * 2 + n * 4,
-                        visible, *ops))
+        case = Case(name, mode, (n,) if variance else dim, h, w, n, c, run,
+                    plain, library,
+                    v * h * w * c * 2 + v * 64 + 12 + extra_in + n * c * 2 + n * 4,
+                    visible, *ops, 2 if variance else 1)
+        # the cotangent is drawn for every checkout, so that --root A/B runs
+        # see the same features
+        ct = torch.randn(n, c, device=dev, generator=gen).to(torch.bfloat16)
+        if hasattr(bp, "_launch_backward"):  # a checkout with the backward
+            add_backward(case, feats, proj, origin, count, world, dim, interval,
+                         coords if variance else None,
+                         valid if variance else None, ct)
+        out.append(case)
     return out
+
+
+def add_backward(case: Case, feats, proj, origin, count, world, dim, interval,
+                 coords, valid, ct):
+    """The backward kernel, its plain version and the yardstick's autograd
+    for the bf16 cotangent ct, and the backward's bytes and operations."""
+    import torch
+    from eprecon_tpu_torch.ops import back_project as bp
+
+    v, h, w, n, c = proj.shape[0], case.h, case.w, case.n, case.c
+    proj16 = proj.float().reshape(v, 1, 16).contiguous()
+    if coords is not None:
+        case.backward = functools.partial(
+            bp._launch_backward, bp.VARIANCE, feats.reshape(v, h * w, c),
+            proj16, origin, coords, valid.to(torch.uint8), ct, count, v, h,
+            w, voxel_size=0.04)
+        case.backward_plain = functools.partial(
+            bp.variance_backward_plain, coords, valid, origin, 0.04, feats,
+            proj, count, ct)
+        # ct, count, coords + valid, the table
+        nbytes = n * c * 2 + n * 4 + n * 17 + v * h * w * c * 2
+        case.backward_ops = (28, 6)
+    else:
+        case.backward = functools.partial(
+            bp._launch_backward, bp.WINDOW_MEAN, None, proj16, origin, None,
+            None, ct, count, v, h, w, dim, interval, 0.04)
+        case.backward_plain = functools.partial(
+            bp.window_backward_plain, dim, interval, origin, 0.04, proj,
+            count.reshape(dim), ct.reshape(*dim, c), h, w)
+        nbytes = n * c * 2 + n * 4
+        case.backward_ops = (8, 1)
+    # projections, origin, and dT written in f32
+    case.backward_bytes = nbytes + v * 64 + 12 + v * h * w * c * 4
+    f_lib = feats[:, 0].permute(0, 3, 1, 2).float().contiguous().requires_grad_(True)
+    lib_out = yardstick(f_lib, proj[:, 0].float(), world, h, w,
+                        coords is not None)[0]
+    case.backward_library = functools.partial(
+        torch.autograd.grad, lib_out, f_lib, ct.float().T.contiguous(),
+        retain_graph=True)
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -155,7 +222,7 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int) -> Tuple[float, int]:
+def device_ms(fn, iters: int, kernel: str = KERNEL) -> Tuple[float, int]:
     """Mean device duration of the KERNEL events that `iters` calls of
     `fn` launch under torch.profiler, each after a write of FLUSH_BYTES,
     and the number of profiled windows that took. Only a window with a
@@ -176,24 +243,28 @@ def device_ms(fn, iters: int) -> Tuple[float, int]:
                 fn()
             torch.cuda.synchronize()
         us = [e.time_range.elapsed_us() for e in prof.events()
-              if KERNEL in e.name and "CUDA" in str(e.device_type)]
+              if kernel in e.name and "CUDA" in str(e.device_type)]
         if len(us) == iters:
             return sum(us) / len(us) / 1e3, window
-        print(f"[profiler] kept {len(us)} {KERNEL} records of {iters} "
+        print(f"[profiler] kept {len(us)} {kernel} records of {iters} "
               f"launches; profiling them again", file=sys.stderr, flush=True)
-    raise AssertionError(f"profiler kept fewer {KERNEL} records than launches "
+    raise AssertionError(f"profiler kept fewer {kernel} records than launches "
                          f"in {WINDOWS} windows of {iters}")
 
 
-def time_case(case: Case, v: int) -> dict:
+def time_case(case: Case, v: int, direction: str = "forward") -> dict:
     iters = 50 if case.n < 200_000 else 20
-    bound, bound_by = case.bound(v)
-    ms, windows = device_ms(case.run, iters)
+    bound, bound_by = case.bound(v, direction)
+    run, plain, library, kernel = (
+        (case.run, case.plain, case.library, KERNEL) if direction == "forward"
+        else (case.backward, case.backward_plain, case.backward_library,
+              BACKWARD_KERNEL))
+    ms, windows = device_ms(run, iters, kernel)
     return dict(ms=ms, profiler_windows=windows,
-                call_ms=cuda_ms(case.run, iters),
-                plain_ms=cuda_ms(case.plain, max(3, iters // 5)),
+                call_ms=cuda_ms(run, iters),
+                plain_ms=cuda_ms(plain, max(3, iters // 5)),
                 bound_ms=bound, bound_by=bound_by,
-                library_ms=cuda_ms(case.library, max(3, iters // 5)))
+                library_ms=cuda_ms(library, max(3, iters // 5)))
 
 
 def main() -> int:
@@ -216,11 +287,12 @@ def main() -> int:
     v = frag["proj_matrices"].shape[0]
     res = {"root": str(args.root), "card": card, "shapes": {}}
     for case in cases(frag["proj_matrices"], frag["vol_origin_partial"]):
-        t = time_case(case, v)
-        res["shapes"][case.name] = t
-        print(f"[bench] {case.name}: " + " ".join(
-            f"{k}={x:.4f}" if isinstance(x, float) else f"{k}={x}"
-            for k, x in t.items()) + f" | {card}", flush=True)
+        for direction in ("forward", "backward")[:2 if case.backward else 1]:
+            t = time_case(case, v, direction)
+            res["shapes"][f"{case.name}/{direction}"] = t
+            print(f"[bench] {case.name} {direction}: " + " ".join(
+                f"{k}={x:.4f}" if isinstance(x, float) else f"{k}={x}"
+                for k, x in t.items()) + f" | {card}", flush=True)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(res, indent=1))

@@ -1,10 +1,16 @@
-"""Where one fragment's time goes on the GPU.
+"""Where one fragment's time goes on the GPU, served or trained.
 
-    python -m eprecon_tpu_torch.tools.profile_fragment [--out chiprun_out/profile_fragment.json]
+    python -m eprecon_tpu_torch.tools.profile_fragment [--train] [--out FILE]
 
 Serves warm-up fragments through StreamingReconstructor at the default
 config (random weights), then profiles one steady-state fragment with
-torch.profiler. Top-level modules and the post-processing steps are
+torch.profiler. With --train it takes training micro-steps instead
+(Trainer at the default config, accumulation 2, threshold-free selection
+as chip_smoke.py trains) and profiles one accumulation cycle (a micro-step
+and an update step); the Trainer's own ranges (train::forward,
+train::backward, train::optimizer) give their host wall time, and the
+backward's device time is what the kernels of the cycle take beyond the
+forward's and the optimizer's (and the uploads'). Top-level modules and the post-processing steps are
 wrapped in named ranges through forward hooks (the model code carries no
 instrumentation), so the report gives, per layer, the device time of the
 kernels it launched, plus the device busy share of the fragment and the
@@ -13,11 +19,13 @@ top kernels. Needs CUDA.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
@@ -27,6 +35,8 @@ from eprecon_tpu_torch.data.synthetic import make_fragment, make_scene
 from eprecon_tpu_torch.inference import pipeline
 from eprecon_tpu_torch.inference.pipeline import StreamingReconstructor
 from eprecon_tpu_torch.models.eprecon import EPRecon
+from eprecon_tpu_torch.ops import grid
+from eprecon_tpu_torch.train.state import Trainer, fragment_tensors
 
 
 def _range_hooks(module: torch.nn.Module, names):
@@ -58,6 +68,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chiprun_out/profile_fragment.json")
     ap.add_argument("--warmup", type=int, default=2)
+    ap.add_argument("--train", action="store_true",
+                    help="profile training micro-steps instead of serving")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_fragment needs CUDA")
@@ -65,12 +77,18 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     cfg = default_config()
+    if args.train:
+        cfg = dataclasses.replace(
+            cfg, model=dataclasses.replace(cfg.model, thresholds=(-100.0,) * 3,
+                                           occ_init_threshold=0.0),
+            train=dataclasses.replace(cfg.train, accumulation_steps=2))
     m = cfg.model
     scene = make_scene(0)
+    n_profiled = 2 if args.train else 1
     frags = [make_fragment(n_vox=m.n_vox, voxel_size=m.voxel_size, scene=scene,
-                           start_angle=0.3 * i) for i in range(args.warmup + 1)]
+                           start_angle=0.3 * i)
+             for i in range(args.warmup + n_profiled)]
     model = EPRecon(m, seed=cfg.seed)
-    rec = StreamingReconstructor(cfg, model)
     layers = (["backbone2d", "backbone_occ_pano", "neucon_net.initialization"]
               + [f"neucon_net.{p}_{i}" for i in range(m.n_layer)
                  for p in ("sp_conv", "gru_fusion", "tsdf_pred", "occ_pred")]
@@ -83,18 +101,35 @@ def main(argv=None) -> int:
     pipeline.fuse_tsdf_direct = _wrap(pipeline.fuse_tsdf_direct,
                                       "fuse_tsdf_direct")
 
-    def feed(d):
-        rec.process_fragment("scene", d["imgs"], d["proj_matrices"],
-                             d["vol_origin_partial"] - 0.5,
-                             d["vol_origin_partial"],
-                             d["world_to_aligned_camera"])
+    if args.train:
+        trainer = Trainer(cfg, model)
+        state = {"rec": trainer.recurrent_state()}
+        g_origin = grid.scene_global_origin(
+            m.global_extent, m.n_vox, m.n_scales, m.voxel_size,
+            frags[0]["vol_origin_partial"] - 0.5, m.origin_margin)
 
-    for d in frags[:-1]:
+        def feed(d):
+            rel = np.stack([np.round((d["vol_origin_partial"] - g_origin)
+                                     / (m.voxel_size * 2 ** (m.n_scales - lv)))
+                            for lv in range(m.n_layer)]).astype(np.int64)
+            imgs, frag, targets = fragment_tensors(d, rel, torch.device("cuda"))
+            state["rec"], _ = trainer.step(imgs, frag, targets, state["rec"])
+    else:
+        rec = StreamingReconstructor(cfg, model)
+
+        def feed(d):
+            rec.process_fragment("scene", d["imgs"], d["proj_matrices"],
+                                 d["vol_origin_partial"] - 0.5,
+                                 d["vol_origin_partial"],
+                                 d["world_to_aligned_camera"])
+
+    for d in frags[:-n_profiled]:
         feed(d)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        feed(frags[-1])
+        for d in frags[-n_profiled:]:
+            feed(d)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
@@ -103,8 +138,14 @@ def main(argv=None) -> int:
     # events), leaving out the device-side copies of the range markers.
     layers_ms: dict = {}
     per_kernel: dict = {}
+    train_ms: dict = {}
     for e in prof.events():
-        if e.name.startswith("layer::"):
+        if e.name.startswith("train::"):
+            if e.device_type == DeviceType.CPU:
+                wall, dev = train_ms.get(e.name, (0.0, 0.0))
+                train_ms[e.name] = (wall + e.cpu_time_total / 1e3,
+                                    dev + e.device_time_total / 1e3)
+        elif e.name.startswith("layer::"):
             if e.device_type == DeviceType.CPU:
                 key = e.name[len("layer::"):]
                 layers_ms[key] = layers_ms.get(key, 0.0) + e.device_time_total / 1e3
@@ -119,11 +160,26 @@ def main(argv=None) -> int:
                                                key=lambda kv: -kv[1])),
                   top_kernels=[dict(name=name, device_ms=ms, calls=calls)
                                for name, (ms, calls) in top],
-                  kernel_launches=sum(c for _, c in per_kernel.values()))
+                  kernel_launches=sum(c for _, c in per_kernel.values()),
+                  profiled_fragments=n_profiled, mode="train" if args.train else "serve")
+    if args.train:
+        # host wall ms of each range; the kernels launched on the main thread
+        # inside it (the backward's run on the autograd engine's thread)
+        report["train_ranges"] = {k: dict(host_wall_ms=w, device_ms_launched_inside=d)
+                                  for k, (w, d) in train_ms.items()}
+        outside = kernel_ms - sum(d for k, (_, d) in train_ms.items()
+                                  if k != "train::backward")
+        report["device_ms_outside_forward_and_optimizer"] = outside
     print(f"card: {card}")
-    print(f"fragment wall {wall_ms:.1f} ms, device kernels {kernel_ms:.1f} ms "
-          f"(busy share {kernel_ms / wall_ms:.2f}), "
+    print(f"{report['mode']}: {n_profiled} fragment(s) wall {wall_ms:.1f} ms, "
+          f"device kernels {kernel_ms:.1f} ms (busy share {kernel_ms / wall_ms:.2f}), "
           f"{report['kernel_launches']} device events")
+    for k, v in report.get("train_ranges", {}).items():
+        print(f"  {k:34s} host {v['host_wall_ms']:8.2f} ms, device launched "
+              f"inside {v['device_ms_launched_inside']:8.2f} ms")
+    if args.train:
+        print(f"  device ms outside the forward and optimizer ranges (the "
+              f"backward, and the uploads) {outside:.2f}")
     for name, ms in report["layers_device_ms"].items():
         print(f"  {name:34s} {ms:8.2f} ms")
     for k in report["top_kernels"]:

@@ -104,7 +104,7 @@ def test_core_two_fragments(setup):
             load(tcore, variables)
         want, _, jstate = apply(variables, *jf, jfrag, jstate)
         with torch.no_grad():
-            got, tstate = tcore(*[[torch.from_numpy(x) for x in fs] for fs in feats],
+            got, _, tstate = tcore(*[[torch.from_numpy(x) for x in fs] for fs in feats],
                                 tfrag, tstate, debug_outputs=True)
         assert int(got["n_occ_2"]) > 1000
         _compare_outputs(got, want)

@@ -74,11 +74,23 @@ def test_entry_point_defaults_to_cuda(monkeypatch):
     assert rec.device.type == "cpu"
 
 
+def test_trainer_defaults_to_cuda(monkeypatch):
+    """Without `device`, the training step asks for CUDA and raises when
+    it is absent; device="cpu" runs the plain versions."""
+    from eprecon_tpu_torch.train.state import Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(default_config(), torch.nn.Linear(1, 1))
+    assert Trainer(default_config(), torch.nn.Linear(1, 1),
+                   device="cpu").device.type == "cpu"
+
+
 def test_wrapper_never_falls_back(monkeypatch, tmp_path):
     """A tensor off the CPU goes to the kernel or raises: a meta tensor is
     refused, a CPU tensor handed to the launcher is refused, and a missing
     toolchain is an error, not a detour to the plain version."""
-    before = bp.total_launches()
+    before = bp.total_launches() + bp.total_backward_launches()
     feats = torch.zeros(2, 1, 4, 4, 8, device="meta")
     proj = torch.zeros(2, 1, 4, 4, device="meta")
     with pytest.raises(ValueError, match="CPU or CUDA"):
@@ -87,6 +99,11 @@ def test_wrapper_never_falls_back(monkeypatch, tmp_path):
     with pytest.raises(ValueError, match="needs CUDA"):
         bp._launch(bp.WINDOW_MEAN, torch.zeros(2, 16, 8, dtype=torch.bfloat16),
                    torch.zeros(2, 1, 16), torch.zeros(1, 3), None, None, 8, 4, 4)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        bp._launch_backward(bp.WINDOW_MEAN, None, torch.zeros(2, 1, 16),
+                            torch.zeros(1, 3), None, None,
+                            torch.zeros(8, 8, dtype=torch.bfloat16),
+                            torch.zeros(8), 2, 4, 4, (2, 2, 2))
     monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(kernels, "_libs", {})
     monkeypatch.setattr(kernels.shutil, "which", lambda _: None)
@@ -94,4 +111,4 @@ def test_wrapper_never_falls_back(monkeypatch, tmp_path):
     monkeypatch.setattr(kernels.Path, "is_file", lambda self: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         kernels.load("back_project")
-    assert bp.total_launches() == before
+    assert bp.total_launches() + bp.total_backward_launches() == before

@@ -1,5 +1,6 @@
-"""The back-projection CUDA kernel against its plain PyTorch version on the
-card, at small shapes (the full-size comparison is in chip_smoke.py).
+"""The back-projection CUDA kernels, forward and backward, against their
+plain PyTorch versions on the card, at small shapes (the full-size
+comparison is in chip_smoke.py).
 Needs an NVIDIA GPU and nvcc; skips without them. On the card (where JAX
 may be missing, so skip tests/conftest.py, which imports it):
 
@@ -187,3 +188,90 @@ def test_kernel_rejects_bad_input(cuda):
     with pytest.raises(ValueError, match="multiple of 8"):
         bp.back_project_window((2, 2, 2), 1, torch.zeros(1, 3, device=cuda), 0.1,
                                feats, torch.zeros(2, 1, 4, 4, device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# backward kernel against the plain backward (f32 atomics: 1e-4 of the scale)
+# ---------------------------------------------------------------------------
+
+BWD_TOL = 1e-4
+
+
+def _close(got, want):
+    scale = want.abs().max().item()
+    assert scale > 0
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= BWD_TOL * scale, (err, scale)
+
+
+def _border_proj(h, w, v):
+    """View 0 maps world (x, y) to pixel (u, v) = (x, y) at depth 1, so at
+    1 m voxels the grid lands on pixel centres and the voxels at u = W - 1
+    and v = H - 1 lie exactly on the frustum border (in), those one further
+    exactly past it (out); the other views are perspective ones."""
+    p = _proj(v, h, w)
+    p[0, 0] = torch.tensor([[1.0, 0, 0, 0], [0, 1.0, 0, 0], [0, 0, 0, 1.0],
+                            [0, 0, 0, 1.0]])
+    return p
+
+
+@pytest.mark.parametrize("dim,interval,voxel,c", [((12, 12, 12), 1, 1.0, 8),
+                                                  ((12, 12, 12), 1, 1.0, 80),
+                                                  ((16, 16, 16), 1, 0.05, 24),
+                                                  ((8, 8, 8), 2, 0.05, 40)])
+def test_window_backward_kernel(cuda, dim, interval, voxel, c):
+    """Window-mean gradient: kernel vs plain backward, with voxels on the
+    frustum border (1 m cases) and voxels no view sees (count 0)."""
+    h, w, v = 10, 11, 4
+    rng = np.random.default_rng(4)
+    feats = torch.from_numpy(rng.standard_normal((v, 1, h, w, c)).astype(np.float32))
+    ct = torch.from_numpy(rng.standard_normal((*dim, c)).astype(np.float32))
+    origin = torch.zeros(1, 3) if voxel == 1.0 else torch.tensor([[0.0013, 0.0027, 0.0031]])
+    proj = _border_proj(h, w, v) if voxel == 1.0 else _proj(v, h, w)
+    f = feats.to(cuda).requires_grad_(True)
+    before = bp.total_backward_launches()
+    mean, count = bp.back_project_window(dim, interval, origin.to(cuda), voxel,
+                                         f, proj.to(cuda))
+    ct_bf = ct.to(cuda).to(torch.bfloat16)
+    (got,) = torch.autograd.grad(mean, f, ct_bf)
+    want = bp.window_backward_plain(dim, interval, origin.to(cuda), voxel,
+                                    proj.to(cuda), count, ct_bf, h, w)
+    torch.cuda.synchronize()
+    assert bp.total_backward_launches() == before + 1
+    assert (count == 0).any() and (count > 0).any()
+    _close(got.reshape(want.shape), want)
+
+
+@pytest.mark.parametrize("c", [8, 32])
+def test_variance_backward_kernel_two_batches(cuda, c):
+    """Variance gradient: kernel vs plain backward, batch 2, invalid rows."""
+    rng = np.random.default_rng(5)
+    h, w = 15, 20
+    feats = torch.from_numpy(rng.standard_normal((4, 2, h, w, c))).to(torch.bfloat16)
+    xyz = np.stack(np.meshgrid(*[np.arange(0, 14, 2)] * 3, indexing="ij"),
+                   -1).reshape(-1, 3)
+    coords = torch.from_numpy(np.concatenate([
+        np.concatenate([np.full((len(xyz), 1), b), xyz], 1)
+        for b in (0, 1)]).astype(np.int32)).to(cuda)
+    valid = torch.from_numpy(rng.uniform(size=coords.shape[0]) > 0.2).to(cuda)
+    origin = torch.tensor([[0.002, 0.001, 0.003], [0.011, 0.004, 0.002]]).to(cuda)
+    proj = _proj(4, h, w, batch=2).to(cuda)
+    ct = torch.from_numpy(rng.standard_normal((coords.shape[0], c))).to(
+        torch.bfloat16).to(cuda)
+    f = feats.to(cuda).requires_grad_(True)
+    before = bp.total_backward_launches()
+    var, count = bp.back_project_variance(coords, valid, origin, 0.05, f, proj)
+    (through_autograd,) = torch.autograd.grad(var, f, ct)
+    # the kernel's f32 gradient, before the cast to the features' bf16
+    got = bp._launch_backward(bp.VARIANCE, f.detach().reshape(4, 2 * h * w, c),
+                              proj.reshape(4, 2, 16), origin, coords,
+                              valid.to(torch.uint8), ct, count, 4, h, w,
+                              voxel_size=0.05)
+    want = bp.variance_backward_plain(coords, valid, origin, 0.05, f.detach(),
+                                      proj, count, ct)
+    torch.cuda.synchronize()
+    assert bp.total_backward_launches() == before + 2
+    assert through_autograd.dtype == torch.bfloat16
+    assert (count >= 2).any() and (count[~valid] == 0).all()
+    _close(got, want)
+    assert got.reshape(4, 2, h, w, c)[:, 1].abs().max() > 0
