@@ -7,10 +7,11 @@ Phases (any failure exits non-zero before the result line):
   1. build csrc/back_project.cu (forward and backward kernels) for sm_90a
      with nvcc;
   2. at the four back-projection call shapes of a full-width fragment,
-     hold the kernel against its plain PyTorch version on the card, tally
-     its brick-views (staged in shared memory / read from device memory /
-     empty), check that the card holds as many CTAs per SM as the launch
-     plan assumes (CUDA occupancy calculator), and time it
+     hold the kernel against its plain PyTorch version on the card (bit
+     for bit), tally its brick-views (some voxel visible / empty), check
+     that the card holds as many CTAs per SM as the launch plan assumes
+     (CUDA occupancy calculator; the plan models each kernel instance's
+     registers), and time it
      (eprecon_tpu_torch/tools/bench_back_project.py):
      ms is the kernel's device time under torch.profiler with the L2
      flushed, call_ms the wrapper's time per call, beside the plain
@@ -18,8 +19,14 @@ Phases (any failure exits non-zero before the result line):
      the card could take (bound_ms);
   3. the backward kernel at the same four shapes against the plain
      backward (f32 gradient of the tables, max abs error <= 1e-4 of its
-     largest entry: f32 atomics sum in a changing order), timed the same
-     way (library_ms: autograd of the F.grid_sample yardstick);
+     largest entry: f32 atomics sum in a changing order); tally its
+     brick-views where its plan takes bricks (summed per pixel in shared
+     memory and added once / scattered straight into the gradient / empty:
+     the box path must run; shapes whose bricks cannot pay take the
+     per-voxel kernel, which tallies nothing), check that the card holds
+     as many CTAs per SM as its plan assumes (a brick plan cuts shared
+     memory for them), and time it the same way (library_ms: autograd of
+     the F.grid_sample yardstick);
   4. serve the main path: StreamingReconstructor at the default config
      (96^3 window at 4 cm, 9 views at 640x480, 80-query 6-layer decoder),
      random weights from a seed, 3 fragments of one scene then 1 of a
@@ -64,11 +71,14 @@ def ptxas_lines(so: Path):
     for line in kernels.ptxas_report(so).read_text().splitlines():
         m = re.search(r"entry function '(\S+)'", line)
         if m:
-            k = re.search(r"ILi(\d+)ELb([01])E", m.group(1))
-            b = re.search(r"backward_kernelILb([01])E", m.group(1))
-            name = (f"items={k.group(1)} {'variance' if k.group(2) == '1' else 'mean'}"
-                    if k else f"backward {'variance' if b.group(1) == '1' else 'mean'}"
-                    if b else m.group(1))
+            f = re.search(r"project_kernelILi(\d+)ELb([01])E", m.group(1))
+            k = re.search(r"backward_kernelILi(\d+)E", m.group(1))
+            b = re.search(r"backward_by_voxelILb([01])E", m.group(1))
+            mode = lambda x: "variance" if x == "1" else "mean"
+            name = (f"items={f.group(1)} {mode(f.group(2))}" if f
+                    else f"backward items={k.group(1)} mean" if k
+                    else f"backward per voxel {mode(b.group(1))}" if b
+                    else m.group(1))
             entries.setdefault(name, [])
         elif name and ("spill" in line or "Used" in line):
             entries[name].append(line.split(":", 1)[-1].strip())
@@ -86,7 +96,7 @@ def kernel_phase(case_list, v, card):
     results = []
     for case in case_list:
         name, n, c = case.name, case.n, case.c
-        stats = torch.zeros(3, dtype=torch.int64, device="cuda")
+        stats = torch.zeros(2, dtype=torch.int64, device="cuda")
         (k_out, k_cnt), (p_out, p_cnt) = case.run(stats=stats), case.plain()
         torch.cuda.synchronize()
         k_out, p_out = k_out.float().reshape(n, c), p_out.float().reshape(n, c)
@@ -98,9 +108,9 @@ def kernel_phase(case_list, v, card):
             raise AssertionError(f"{name}: max abs err {err} > {TOL * scale_}")
         if not (0.05 * n < (p_cnt > 0).sum().item()):
             raise AssertionError(f"{name}: degenerate geometry, few visible voxels")
-        staged, from_memory, empty = stats.tolist()
-        plan = bp.plan_launch(case.extent, c, case.h, case.w, v, 1, case.mode)
-        if staged + from_memory + empty != plan.grid * v:
+        seen, empty = stats.tolist()
+        plan = bp.plan_launch(case.extent, c, v, 1, case.mode)
+        if seen + empty != plan.grid * v:
             raise AssertionError(f"{name}: brick-view tallies {stats.tolist()} "
                                  f"!= {plan.grid} CTAs x {v} views")
         ctas_per_sm = bp.occupancy(plan, case.mode)
@@ -113,9 +123,8 @@ def kernel_phase(case_list, v, card):
                    replaces="tools_dev/pallas_gather_probe.py:56",
                    launches=0, max_abs_err=err, **t,
                    key=[case.mode, n, c], bitwise_equal=err == 0.0,
-                   ctas_per_sm=ctas_per_sm,
-                   brick_views=dict(staged=staged, from_memory=from_memory,
-                                    empty=empty),
+                   ctas_per_sm=ctas_per_sm, plan_ctas_per_sm=plan.ctas_per_sm,
+                   brick_views=dict(seen=seen, empty=empty),
                    launch_parameters=dict(brick=list(plan.brick), grid=plan.grid,
                                           threads=plan.threads,
                                           smem_bytes=plan.smem_bytes))
@@ -123,9 +132,9 @@ def kernel_phase(case_list, v, card):
               f"(profiled windows {t['profiler_windows']}) "
               f"call_ms={t['call_ms']:.4f} plain_ms={t['plain_ms']:.4f} "
               f"library_ms={t['library_ms']:.4f} bound_ms={t['bound_ms']:.4f} "
-              f"({t['bound_by']}) CTAs/SM on the card={ctas_per_sm} "
-              f"brick-views staged/from-memory/empty={staged}/{from_memory}/"
-              f"{empty} | launched with brick={plan.brick} grid={plan.grid} "
+              f"({t['bound_by']}) CTAs/SM on the card={ctas_per_sm} (plan "
+              f"{plan.ctas_per_sm}) brick-views seen/empty={seen}/{empty} | "
+              f"launched with brick={plan.brick} grid={plan.grid} "
               f"threads={plan.threads} smem={plan.smem_bytes} B | {card}",
               flush=True)
         results.append(res)
@@ -136,30 +145,62 @@ def backward_phase(case_list, v, card):
     """Backward kernel vs plain backward at the four call shapes, then
     timed like the forward."""
     import torch
+    from eprecon_tpu_torch.ops import back_project as bp
     from eprecon_tpu_torch.tools import bench_back_project as bench
 
     results = []
     for case in case_list:
-        got, want = case.backward(), case.backward_plain()
+        stats = torch.zeros(3, dtype=torch.int64, device="cuda")
+        got, want = case.backward(stats=stats), case.backward_plain()
         torch.cuda.synchronize()
         scale = want.abs().max().item()
         err = (got.reshape(want.shape) - want).abs().max().item()
         if not (scale > 0 and err <= BACKWARD_TOL * scale):
             raise AssertionError(f"backward {case.name}: max abs err {err} > "
                                  f"{BACKWARD_TOL} x {scale}")
+        in_box, direct, empty = stats.tolist()
+        plan = bp.plan_backward(case.extent, case.c, case.h, case.w, v,
+                                case.mode)
+        if plan.per_voxel:
+            if in_box + direct + empty != 0:
+                raise AssertionError(f"backward {case.name}: the per-voxel "
+                                     f"kernel tallied {stats.tolist()}")
+        elif in_box + direct + empty != plan.grid * v or in_box == 0:
+            raise AssertionError(f"backward {case.name}: brick-view tallies "
+                                 f"{stats.tolist()} for {plan.grid} CTAs x {v} "
+                                 f"views (the shared-memory path must run)")
+        ctas_per_sm = bp.occupancy(plan, case.mode)
+        if ctas_per_sm != plan.ctas_per_sm:
+            raise AssertionError(f"backward {case.name}: the card holds "
+                                 f"{ctas_per_sm} CTAs per SM, the plan assumes "
+                                 f"{plan.ctas_per_sm}")
         t = bench.time_case(case, v, "backward")
         results.append(dict(
             name=f"back_project_backward/{case.name}", route="cuda",
             source="eprecon_tpu_torch/csrc/back_project.cu",
-            replaces="eprecon_tpu/ops/back_project.py:23",
+            replaces="eprecon_tpu/ops/back_project.py:24",
             launches=0, max_abs_err=err, **t, key=[case.mode, case.n, case.c],
-            rel_err=err / scale))
+            rel_err=err / scale, ctas_per_sm=ctas_per_sm,
+            plan_ctas_per_sm=plan.ctas_per_sm,
+            brick_views=dict(in_box=in_box, direct=direct, empty=empty),
+            launch_parameters=dict(per_voxel=plan.per_voxel, brick=list(plan.brick),
+                                   grid=plan.grid, threads=plan.threads,
+                                   cvec=plan.cvec, box_px=plan.box_px,
+                                   smem_bytes=plan.smem_bytes)))
         print(f"[backward] {case.name}: N={case.n} C={case.c} err={err:.3g} "
               f"(max |plain| {scale:.3g}) ms={t['ms']:.4f} "
               f"(profiled windows {t['profiler_windows']}) "
               f"call_ms={t['call_ms']:.4f} plain_ms={t['plain_ms']:.4f} "
               f"library_ms={t['library_ms']:.4f} bound_ms={t['bound_ms']:.4f} "
-              f"({t['bound_by']}) | {card}", flush=True)
+              f"({t['bound_by']}) CTAs/SM on the card={ctas_per_sm} (plan "
+              f"{plan.ctas_per_sm}) " + (
+                  f"per-voxel kernel, grid={plan.grid} threads={plan.threads}"
+                  if plan.per_voxel else
+                  f"brick-views in-box/direct/empty={in_box}/{direct}/{empty} | "
+                  f"launched with brick={plan.brick} grid={plan.grid} threads="
+                  f"{plan.threads} cvec={plan.cvec} box_px="
+                  f"{plan.box_px} smem={plan.smem_bytes} B") + f" | {card}",
+              flush=True)
     return results
 
 

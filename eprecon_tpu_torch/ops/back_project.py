@@ -27,7 +27,7 @@ import ctypes
 import dataclasses
 import functools
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -213,16 +213,31 @@ MAX_THREADS_PER_SM = 2048
 SMEM_PER_SM = 228 * 1024          # 1 KB of it reserved per resident CTA
 SMEM_GRANULE = 128                # a CTA's shared memory is allocated in these
 REGS_PER_SM = 65536               # in 4 sub-partitions, each holding whole warps
-REGS_PER_THREAD = 80              # launch bounds 256 x 3 CTAs; a multiple of 8,
-                                  # the allocation unit (256 per warp)
-# warps per SM the registers hold: 4 x 6; `occupancy` checks it on the card
-WARPS_BY_REGS = 4 * (REGS_PER_SM // 4 // (REGS_PER_THREAD * 32))
+# Registers per thread of each kernel instance, as ptxas reports them for
+# sm_90a (chip_smoke.py prints the report and fails where the card then
+# holds another number of CTAs than a plan assumes); multiples of 8, the
+# allocation unit. The forward by (mode, items): its launch bounds (256
+# threads x 3 CTAs) cap them at 80. The brick backward: 256 x 4 caps it at
+# 64. The per-voxel backward by mode.
+REGS_PER_THREAD = {(WINDOW_MEAN, 1): 64, (WINDOW_MEAN, 2): 72,
+                   (WINDOW_MEAN, 3): 80, (VARIANCE, 1): 64, (VARIANCE, 2): 80}
+BWD_REGS_PER_THREAD = 64
+PER_VOXEL_REGS_PER_THREAD = {WINDOW_MEAN: 40, VARIANCE: 64}
 SMEM_MAX = 232448                 # the most one CTA can opt in to (227 KB)
 MIN_BRICK = 16                    # voxels; smaller only when channels force it
 BRICKS = ((8, 8, 8), (4, 8, 8), (4, 4, 8), (4, 4, 4), (2, 4, 4), (2, 2, 4),
           (2, 2, 2), (1, 2, 2), (1, 1, 2), (1, 1, 1))
 RUNS = (256, 128, 64, 32, 16, 8, 4, 2, 1)
-MAX_ITEMS = {WINDOW_MEAN: 3, VARIANCE: 2}  # f32 sums kept in registers
+MAX_ITEMS = {WINDOW_MEAN: 3, VARIANCE: 2}  # forward: f32 sums kept in registers
+BWD_MAX_ITEMS = 2                 # brick backward: the window mean's d per item
+BOX_MIN_PX = 1024                 # pixels of the largest box the backward should sum
+BOX_MAX_PX = 65535                # the kernel packs a box pixel into 16 bits
+
+
+def _warps_by_regs(regs_per_thread: int) -> int:
+    """Warps per SM the registers hold: 4 sub-partitions of whole warps
+    (`occupancy` checks it on the card)."""
+    return 4 * (REGS_PER_SM // 4 // (regs_per_thread * 32))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -231,45 +246,72 @@ class LaunchPlan:
     grid: int                    # CTAs
     threads: int                 # per CTA, a multiple of 32
     items: int                   # (voxel, 8-channel) items per thread
-    ctas_per_sm: int             # resident CTAs the shared memory is cut for
-    patch_bytes: int             # one of the two staging buffers
+    ctas_per_sm: int             # resident CTAs per SM the plan assumes
     layout: Tuple[int, ...]      # shared-memory region offsets, then the total
 
     @property
     def smem_bytes(self) -> int:  # dynamic shared memory per CTA
-        return self.layout[-1]
+        return self.layout[-1] if self.layout else 0
+
+
+@dataclasses.dataclass(frozen=True)
+class BackwardPlan(LaunchPlan):
+    """A backward launch: one CTA per (brick, channel split), or per
+    MAX_THREADS (voxel, vector) items."""
+    cvec: int = 1                # 8-channel vectors per CTA (a divisor of C/8)
+    box_px: int = 0              # pixels of the largest box summed in shared memory
+    per_voxel: bool = False      # one thread per (voxel, vector), no bricks
 
 
 def _align16(x: int) -> int:
     return (x + 15) // 16 * 16
 
 
-def smem_regions(v: int, b: int, bvox: int, patch_bytes: int):
-    """Bytes of each shared-memory region of one CTA, in the order of
-    `Layout` in csrc/back_project.cu, which says how the kernel indexes
+def smem_regions(v: int, b: int, bvox: int):
+    """Bytes of each shared-memory region of one forward CTA, in the order
+    of `Layout` in csrc/back_project.cu, which says how the kernel indexes
     them."""
     return dict(proj=v * b * 16 * 4, world=bvox * 16, row=bvox * 4,
                 cnt=bvox * 4, w=2 * bvox * 16, uv=2 * bvox * 4,
-                part=(MAX_THREADS // 32) * 8 * 4, box=2 * 8 * 4,
-                views=(v + 1) * 4, patch=2 * patch_bytes)
+                part=(MAX_THREADS // 32) * 8 * 4, views=(v + 1) * 4)
 
 
-def smem_layout(v: int, b: int, bvox: int, patch_bytes: int) -> Tuple[int, ...]:
-    """Offsets of the regions of `smem_regions`, each 16-byte aligned, and
-    their total: the layout the kernel is launched with."""
+def backward_regions(v: int, bvox: int, cvec: int, box_px: int):
+    """Bytes of each shared-memory region of one brick backward CTA (one
+    batch element, a record slot per view), in the order of `BwdLayout` in
+    csrc/back_project.cu."""
+    return dict(proj=v * 16 * 4, world=bvox * 16, row=bvox * 4,
+                w=v * bvox * 16, uv=v * bvox * 4,
+                part=(MAX_THREADS // 32) * 8 * 4, box=v * 4 * 4,
+                views=(v + 1) * 4, d=bvox * cvec * 8 * 4, list=4 * bvox * 4,
+                cnt=(box_px + 1) * 4)
+
+
+def _layout(regions) -> Tuple[int, ...]:
+    """Offsets of the regions, each 16-byte aligned, and their total: the
+    layout a kernel is launched with."""
     offsets, at = [], 0
-    for size in smem_regions(v, b, bvox, patch_bytes).values():
+    for size in regions.values():
         offsets.append(at)
         at += _align16(size)
     return (*offsets, at)
 
 
-def _brick_shape(bvox: int, nvec: int, grid: int) -> Tuple[int, int, int]:
-    """(items per thread, threads, resident CTAs per SM) of a brick."""
+def _resident(threads: int, regs: int) -> int:
+    """CTAs of `threads` threads at `regs` registers each that one SM holds,
+    shared memory aside."""
+    return min(_warps_by_regs(regs) // (threads // 32), MAX_CTAS_PER_SM,
+               MAX_THREADS_PER_SM // threads)
+
+
+def _brick_shape(bvox: int, nvec: int, grid: int,
+                 regs: Callable[[int], int]) -> Tuple[int, int, int]:
+    """(items per thread, threads, resident CTAs per SM) of a brick whose
+    CTAs own `nvec` 8-channel vectors of each voxel; `regs` gives the
+    registers per thread of the instance for a number of items."""
     items = math.ceil(bvox * nvec / MAX_THREADS)
     threads = 32 * math.ceil(bvox * nvec / items / 32)
-    ctas = min(WARPS_BY_REGS // (threads // 32), MAX_CTAS_PER_SM,
-               MAX_THREADS_PER_SM // threads, math.ceil(grid / SM_COUNT))
+    ctas = min(_resident(threads, regs(items)), math.ceil(grid / SM_COUNT))
     return items, threads, max(1, ctas)
 
 
@@ -277,54 +319,159 @@ def _grid(extent: Tuple[int, ...], brick: Tuple[int, int, int]) -> int:
     return math.prod(math.ceil(e / s) for e, s in zip(extent, brick))
 
 
-def brick_choices(extent: Tuple[int, ...], c: int, mode: int
-                  ) -> List[Tuple[int, int, int]]:
-    """The bricks a launch over `extent` may take, largest first: those
-    whose items fit the registers, of at least MIN_BRICK voxels (unless the
-    channels leave only smaller ones). extent: (X, Y, Z) of a dense window,
-    or (N,) rows of a coordinate list."""
-    nvec = c // 8
+def _choices(extent: Tuple[int, ...], nvec: int, max_items: int
+             ) -> List[Tuple[int, int, int]]:
     cands = BRICKS if len(extent) == 3 else tuple((r, 1, 1) for r in RUNS)
     fitting = [br for br in cands
-               if math.ceil(math.prod(br) * nvec / MAX_THREADS) <= MAX_ITEMS[mode]]
+               if math.ceil(math.prod(br) * nvec / MAX_THREADS) <= max_items]
     if not fitting:
-        raise ValueError(f"{c} channels are too wide for one CTA")
+        raise ValueError(f"{8 * nvec} channels are too wide for one CTA")
     return [br for br in fitting if math.prod(br) >= MIN_BRICK] or fitting[:1]
 
 
-def plan_brick(extent: Tuple[int, ...], c: int, h: int, w: int, v: int,
-               b: int, brick: Tuple[int, int, int]) -> LaunchPlan:
-    """The launch over `extent` with one CTA per `brick`. As many CTAs
-    share an SM as the registers allow, or as the grid needs to run in one
-    wave if that is fewer; the staging buffers take the shared memory those
-    CTAs leave (whole 128-byte granules), capped at a whole table (h * w
-    pixels of c channels)."""
+def brick_choices(extent: Tuple[int, ...], c: int, mode: int
+                  ) -> List[Tuple[int, int, int]]:
+    """The bricks a forward launch over `extent` may take, largest first:
+    those whose items fit the registers, of at least MIN_BRICK voxels
+    (unless the channels leave only smaller ones). extent: (X, Y, Z) of a
+    dense window, or (N,) rows of a coordinate list."""
+    return _choices(extent, c // 8, MAX_ITEMS[mode])
+
+
+def _largest_filling(extent, choices, nsplit: int, nvec: int,
+                     regs: Callable[[int], int]):
+    """The largest brick whose grid fills the card with MIN_WAVES waves of
+    resident CTAs, else the one that fills the most. (Per-brick setup and
+    view cull favour large bricks; a grid of less than two waves leaves SMs
+    idle at its end.)"""
+    def waves(br):
+        grid = _grid(extent, br) * nsplit
+        return grid / (_brick_shape(math.prod(br), nvec, grid, regs)[2] * SM_COUNT)
+
+    full = [br for br in choices if waves(br) >= MIN_WAVES]
+    return full[0] if full else max(choices, key=waves)
+
+
+def _forward_regs(mode: int) -> Callable[[int], int]:
+    return lambda items: REGS_PER_THREAD[mode, items]
+
+
+def plan_brick(extent: Tuple[int, ...], c: int, v: int, b: int,
+               brick: Tuple[int, int, int], mode: int = WINDOW_MEAN
+               ) -> LaunchPlan:
+    """The forward launch over `extent` with one CTA per `brick`; as many
+    CTAs share an SM as the registers of the mode's instance allow, or as
+    the grid needs to run in one wave if that is fewer."""
     bvox, grid = math.prod(brick), _grid(extent, brick)
-    items, threads, ctas = _brick_shape(bvox, c // 8, grid)
-    fixed = smem_layout(v, b, bvox, 0)[-1]
-    if fixed > SMEM_MAX:
+    items, threads, ctas = _brick_shape(bvox, c // 8, grid, _forward_regs(mode))
+    layout = _layout(smem_regions(v, b, bvox))
+    if layout[-1] > SMEM_MAX:
         raise ValueError(f"{v} views x {b} batches exceed shared memory")
-    budget = min(SMEM_PER_SM // ctas - 1024, SMEM_MAX) // SMEM_GRANULE * SMEM_GRANULE
-    patch = min(max(0, (budget - fixed) // 2 // 16 * 16), _align16(h * w * c * 2))
-    return LaunchPlan(brick, grid, threads, items, ctas, patch,
-                      smem_layout(v, b, bvox, patch))
+    return LaunchPlan(brick, grid, threads, items, ctas, layout)
 
 
 @functools.lru_cache(maxsize=None)
-def plan_launch(extent: Tuple[int, ...], c: int, h: int, w: int, v: int,
-                b: int = 1, mode: int = WINDOW_MEAN) -> LaunchPlan:
-    """Brick, grid and shared memory of one launch (`plan_brick`): the
-    largest of the `brick_choices` whose grid fills the card with
-    MIN_WAVES waves of resident CTAs, else the one that fills the most.
-    (Per-brick setup and view cull favour large bricks; a grid of less
-    than two waves leaves SMs idle at its end.)"""
-    def waves(br):
-        grid = _grid(extent, br)
-        return grid / (_brick_shape(math.prod(br), c // 8, grid)[2] * SM_COUNT)
+def plan_launch(extent: Tuple[int, ...], c: int, v: int, b: int = 1,
+                mode: int = WINDOW_MEAN) -> LaunchPlan:
+    """Brick, grid and shared memory of one forward launch (`plan_brick`):
+    the largest of the `brick_choices` that fills the card
+    (`_largest_filling`)."""
+    brick = _largest_filling(extent, brick_choices(extent, c, mode), 1, c // 8,
+                             _forward_regs(mode))
+    return plan_brick(extent, c, v, b, brick, mode)
 
-    choices = brick_choices(extent, c, mode)
-    full = [br for br in choices if waves(br) >= MIN_WAVES]
-    return plan_brick(extent, c, h, w, v, b, full[0] if full else max(choices, key=waves))
+
+def backward_brick_choices(extent: Tuple[int, int, int], cvec: int, v: int
+                           ) -> List[Tuple[int, int, int]]:
+    """The bricks a window mean's backward whose CTAs own `cvec` vectors
+    may take, largest first: as `brick_choices`, but only those whose
+    records for every one of `v` views fit one CTA's shared memory, and of
+    those only the ones that fill a CTA of MAX_THREADS threads where any
+    does, so that few CTAs share an SM and each keeps a large share of its
+    shared memory for the box."""
+    fitting = [br for br in _choices(extent, cvec, BWD_MAX_ITEMS)
+               if _layout(backward_regions(v, math.prod(br), cvec, 0))[-1] <= SMEM_MAX]
+    full = [br for br in fitting if math.prod(br) * cvec >= MAX_THREADS]
+    return full or fitting
+
+
+def plan_backward_brick(extent: Tuple[int, int, int], c: int, h: int, w: int,
+                        v: int, brick: Tuple[int, int, int], cvec: int,
+                        box_px: Optional[int] = None) -> BackwardPlan:
+    """The window mean's brick backward over `extent` with one CTA per
+    `brick` and `cvec` of the c/8 vectors. Every view gets a record slot;
+    as many CTAs share an SM as the registers allow (or the grid needs) and
+    the records leave room for; the per-pixel counts of the box take the
+    shared memory those CTAs leave (whole 128-byte granules), capped at a
+    whole image (h * w pixels) and BOX_MAX_PX; that cut also makes shared
+    memory hold exactly that many CTAs. `box_px` overrides the box (0:
+    every brick-view scatters straight into the gradient). Refuses a brick
+    whose records for every view do not fit one CTA."""
+    nvec = c // 8
+    if cvec < 1 or nvec % cvec:
+        raise ValueError(f"{cvec} vectors per CTA do not divide {nvec}")
+    bvox, grid = math.prod(brick), _grid(extent, brick) * (nvec // cvec)
+    items, threads, ctas = _brick_shape(bvox, cvec, grid,
+                                        lambda _: BWD_REGS_PER_THREAD)
+    if items > BWD_MAX_ITEMS:
+        raise ValueError(f"brick {brick} x {cvec} vectors: {items} items per thread")
+    fixed = _layout(backward_regions(v, bvox, cvec, 0))[-1]
+    if fixed > SMEM_MAX:
+        raise ValueError(f"{v} views exceed shared memory")
+    ctas = min(ctas, SMEM_PER_SM // (-(-fixed // SMEM_GRANULE) * SMEM_GRANULE + 1024))
+    budget = min(SMEM_PER_SM // ctas - 1024, SMEM_MAX) // SMEM_GRANULE * SMEM_GRANULE
+    if box_px is None:
+        box_px = max(0, min((budget - fixed) // 16 * 4, h * w, BOX_MAX_PX))
+    return BackwardPlan(brick, grid, threads, items, ctas,
+                        _layout(backward_regions(v, bvox, cvec, box_px)),
+                        cvec=cvec, box_px=box_px)
+
+
+def per_voxel_plan(n: int, c: int, mode: int) -> BackwardPlan:
+    """The backward as one thread per (voxel, vector) over n rows: no
+    bricks, no shared memory; as many CTAs share an SM as the registers of
+    the mode's instance allow."""
+    return BackwardPlan((1, 1, 1), math.ceil(n * (c // 8) / MAX_THREADS),
+                        MAX_THREADS, 1,
+                        _resident(MAX_THREADS, PER_VOXEL_REGS_PER_THREAD[mode]),
+                        (), per_voxel=True)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_backward(extent: Tuple[int, ...], c: int, h: int, w: int, v: int,
+                  mode: int = WINDOW_MEAN) -> BackwardPlan:
+    """The backward launch. The window mean takes bricks: the widest
+    channel split (most vectors per CTA) whose box holds BOX_MIN_PX pixels
+    (or a whole image); for it, the largest of the `backward_brick_choices`
+    that fills the card. (Fewer splits repeat the setup, cull and
+    projection fewer times; a larger box keeps more brick-views off the
+    direct path.) The variance over its coordinate list, a window where no
+    split leaves such a box (or none holds the records of every view), and
+    a window whose bricks cannot fill
+    MIN_WAVES waves of the card take `per_voxel_plan`: the occupancy init's
+    row runs are thin slabs whose corners seldom share a pixel (1.2-1.6
+    corners per pixel and run, against 3-5 in a window's bricks), and a
+    grid of bricks under two waves is bound by one CTA's chain of phases;
+    at both the per-voxel kernel measured faster (PERF.md)."""
+    n = math.prod(extent)
+    if mode == VARIANCE:
+        return per_voxel_plan(n, c, mode)
+    nvec = c // 8
+    for cvec in sorted((d for d in range(1, nvec + 1) if nvec % d == 0),
+                       reverse=True):
+        choices = backward_brick_choices(extent, cvec, v)
+        if not choices:
+            continue
+        brick = _largest_filling(extent, choices, nvec // cvec, cvec,
+                                 lambda _: BWD_REGS_PER_THREAD)
+        plan = plan_backward_brick(extent, c, h, w, v, brick, cvec)
+        if plan.box_px >= min(BOX_MIN_PX, h * w):
+            break
+    else:
+        return per_voxel_plan(n, c, mode)
+    if plan.grid < MIN_WAVES * plan.ctas_per_sm * SM_COUNT:
+        return per_voxel_plan(n, c, mode)
+    return plan
 
 
 # ---------------------------------------------------------------------------
@@ -341,11 +488,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                                    ctypes.POINTER(ctypes.c_longlong),
                                    p, p, p, p]
         lib.bp_forward.restype = ctypes.c_int
-        lib.bp_occupancy.argtypes = [i, i, i, i, ctypes.POINTER(i)]
+        lib.bp_occupancy.argtypes = [i, i, i, i, i, ctypes.POINTER(i)]
         lib.bp_occupancy.restype = ctypes.c_int
         lib.bp_backward.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
                                     ctypes.c_longlong, i, i, i, i,
-                                    ctypes.c_float, i, p, p]
+                                    ctypes.c_float, i, i, i, i, i, i, i, i,
+                                    ctypes.POINTER(ctypes.c_longlong), p, p, p]
         lib.bp_backward.restype = ctypes.c_int
     return lib
 
@@ -374,9 +522,8 @@ def _launch(mode: int, table: torch.Tensor, proj: torch.Tensor,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """table [V, B*H*W, C] bf16; proj [V, B, 16] f32; origin [B, 3] f32;
     coords [N, 4] int32 or None (dense window `dims` * `interval`);
-    stats: None, or int64 [3] that the kernel adds its brick-view tallies
-    to (staged in shared memory, read from device memory, no voxel
-    visible)."""
+    stats: None, or int64 [2] that the kernel adds its brick-view tallies
+    to (some voxel visible, none: culled or all out of frustum)."""
     dev = table.device
     if dev.type != "cuda":
         raise ValueError(f"back-projection kernel needs CUDA tensors, got {dev}")
@@ -393,9 +540,9 @@ def _launch(mode: int, table: torch.Tensor, proj: torch.Tensor,
         _check("coords", coords, torch.int32, (n, 4), dev)
         _check("valid", valid, torch.uint8, (n,), dev)
     if stats is not None:
-        _check("stats", stats, torch.int64, (3,), dev)
-    plan = plan_launch((n,) if coords is not None else tuple(dims), c, h, w,
-                       vv, bb, mode)
+        _check("stats", stats, torch.int64, (2,), dev)
+    plan = plan_launch((n,) if coords is not None else tuple(dims), c, vv, bb,
+                       mode)
     lib = _library()
     out = torch.empty(n, c, dtype=torch.bfloat16, device=dev)
     count = torch.empty(n, dtype=torch.float32, device=dev)
@@ -419,11 +566,16 @@ def _launch_backward(mode: int, table: Optional[torch.Tensor],
                      valid: Optional[torch.Tensor], ct: torch.Tensor,
                      count: torch.Tensor, v: int, h: int, w: int,
                      dims: Sequence[int] = (0, 0, 0), interval: int = 1,
-                     voxel_size: float = 1.0) -> torch.Tensor:
+                     voxel_size: float = 1.0,
+                     stats: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The backward kernel: the table gradient [V, B*H*W, C] f32 given the
     cotangent ct [N, C] bf16 and the forward's count [N] f32. table: the
     bf16 [V, B*H*W, C] features (variance only; the mean does not read
-    them); proj, origin, coords, valid as for `_launch`."""
+    them); proj, origin, coords, valid as for `_launch`; stats: None, or
+    int64 [3] that a brick plan's kernel (the window mean's) adds its
+    brick-view tallies to (summed per pixel in shared memory, scattered
+    straight into the gradient, no voxel visible; a per-voxel plan adds
+    none)."""
     dev = ct.device
     if dev.type != "cuda":
         raise ValueError(f"back-projection kernel needs CUDA tensors, got {dev}")
@@ -439,13 +591,19 @@ def _launch_backward(mode: int, table: Optional[torch.Tensor],
         _check("table", table, torch.bfloat16, (v, bb * h * w, c), dev)
         _check("coords", coords, torch.int32, (n, 4), dev)
         _check("valid", valid, torch.uint8, (n,), dev)
+    if stats is not None:
+        _check("stats", stats, torch.int64, (3,), dev)
+    plan = plan_backward((n,) if mode == VARIANCE else tuple(dims), c, h, w,
+                         v, mode)
+    lib = _library()
     grad = torch.zeros(v, bb * h * w, c, dtype=torch.float32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()
-    rc = _library().bp_backward(
+    rc = lib.bp_backward(
         ptr(table), proj.data_ptr(), origin.data_ptr(), ptr(coords),
         ptr(valid), ct.data_ptr(), count.data_ptr(), v, bb, h, w, c, n,
         dims[0], dims[1], dims[2], interval, float(voxel_size), mode,
-        grad.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        int(plan.per_voxel), *plan.brick, plan.cvec, plan.threads, plan.items, (ctypes.c_longlong * len(plan.layout))(*plan.layout),
+        grad.data_ptr(), ptr(stats), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"back_project backward launch failed: CUDA error {rc}")
     backward_launch_counts[(mode, n, c)] += 1
@@ -461,11 +619,15 @@ def total_backward_launches() -> int:
 
 
 def occupancy(plan: LaunchPlan, mode: int) -> int:
-    """CTAs of `plan` that one SM of the current CUDA device holds, from
-    the CUDA occupancy calculator on the built kernel; `plan_launch` cuts
-    the shared memory for `plan.ctas_per_sm` of them."""
+    """CTAs of `plan` (forward, or a BackwardPlan) that one SM of the
+    current CUDA device holds, from the CUDA occupancy calculator on the
+    built kernel; the plan assumes `plan.ctas_per_sm` of them (from the
+    instance's registers; a brick backward's box takes the shared memory
+    they leave)."""
+    kernel = (0 if not isinstance(plan, BackwardPlan)
+              else 2 if plan.per_voxel else 1)
     ctas = ctypes.c_int(0)
-    rc = _library().bp_occupancy(mode, plan.items, plan.threads,
+    rc = _library().bp_occupancy(kernel, mode, plan.items, plan.threads,
                                  plan.smem_bytes, ctypes.byref(ctas))
     if rc != 0:
         raise RuntimeError(f"back_project occupancy query failed: CUDA error {rc}")

@@ -1,24 +1,35 @@
-"""Ablations of the back-projection kernel, on one NVIDIA GPU.
+"""Ablations of the back-projection kernels, on one NVIDIA GPU.
 
-    python -m eprecon_tpu_torch.tools.ablate_back_project [--out FILE]
+    python -m eprecon_tpu_torch.tools.ablate_back_project [--out FILE] [--variants-only]
 
 Builds variants of csrc/back_project.cu, each the source with a few text
 substitutions, and times each at the four call shapes of
-tools/bench_back_project.py (device time under the profiler, L2 flushed):
+tools/bench_back_project.py (device time under the profiler, L2 flushed),
+forward and backward:
 
-  as_is              the kernel as committed
+  as_is              the kernels as committed
   no_view_cull       no brick-view is skipped before projecting it
-  from_memory        no box is staged: every corner read from device memory
-  compiler_division  one IEEE division per output quotient as nvcc emits
-                     it, instead of a shared reciprocal per voxel
-  no_gather          phase C skipped: a floor for the other phases (its
-                     output is wrong and is not checked)
+  compiler_division  the forward divides as nvcc emits an IEEE division,
+                     one per output quotient, instead of a shared reciprocal
+                     per voxel
+  no_gather          the forward's gather skipped: a floor for its other
+                     phases
+  no_global_atomics  the backward adds nothing to the gradient in device
+                     memory (its sums are still formed): the atomics' cost
+  no_pixel_sums      the backward skips the per-pixel sums of the brick-views
+                     that take the box (and their atomics): a floor for
+                     setup, cull, projection and the cotangents
 
-Every other variant must stay bitwise equal to the plain version. For the
-kernel as committed it also prints the mean cycles per CTA that thread 0
-spends in each phase, from clock64() stamps added the same way, and times
-each shape with every brick the launch plan may choose from
-(ops/back_project.py brick_choices), beside the CTAs per SM the card holds.
+The last three give wrong outputs, which are not checked; every other
+variant must stay bitwise equal to the plain forward and within 1e-4 of
+the plain backward's scale. Then, with the kernels as
+committed, it times every brick the forward plan may choose from
+(ops/back_project.py brick_choices) and every backward launch the backward
+plan may choose from: the per-voxel kernel and, for the window mean, each
+channel split (vectors per CTA) with each brick it allows, and the chosen
+brick plan (or, where the plan takes the per-voxel kernel, the largest
+one-vector brick) with no box (every brick-view scattered straight into
+the gradient), beside the CTAs per SM the card holds.
 """
 from __future__ import annotations
 
@@ -29,53 +40,25 @@ import subprocess
 import sys
 from pathlib import Path
 
-PHASES = ["setup+cull", "project", "box+copy", "wait", "gather", "write"]
-
-
-def _stamp(i: int) -> str:
-    return (" { const long long _n = clock64(); if (threadIdx.x == 0) "
-            f"atomicAdd(&g_phase[{i}], (unsigned long long)(_n - _t)); _t = _n; }}\n")
-
-
-CLOCK_READER = '''
-extern "C" int bp_phases(unsigned long long* host) {
-  cudaError_t e = cudaMemcpyFromSymbol(host, g_phase, sizeof(g_phase));
-  const unsigned long long zero[8] = {};
-  cudaMemcpyToSymbol(g_phase, zero, sizeof(zero));
-  return (int)e;
-}
-'''
-
 VARIANTS = {
     "as_is": [],
-    "no_view_cull": [("view_may_see(s_proj + (v * B + blo) * 16, lo, hi, H, W)", "true")],
-    "from_memory": [("    bx_.staged = bx_.any && bmin == bmax &&",
-                     "    bx_.staged = false && bmin == bmax &&")],
+    "no_view_cull": [("view_may_see(s_proj + (v * p.B + blo) * 16, lo, hi,\n"
+                      "                                      p.H, p.W)", "true")],
     "compiler_division": [
         ("      r1[e] = by_cnt.fast(s1[k][e]);", "      r1[e] = s1[k][e] / denom;"),
         ("      r2[e] = kVariance ? by_cnt.fast(s2[k][e]) : 0.f;",
          "      r2[e] = kVariance ? s2[k][e] / denom : 0.f;")],
-    "no_gather": [("      gather_view<K, kVariance>(rows,", "      if (0) gather_view<K, kVariance>(rows,")],
-    "phase_clock": [
-        ("namespace {\n", "namespace {\n__device__ unsigned long long g_phase[8];\n"),
-        ("  extern __shared__ __align__(16) unsigned char smem[];\n",
-         "  extern __shared__ __align__(16) unsigned char smem[];\n  long long _t = clock64();\n"),
-        ("  const int nviews = s_views[V];\n", "  const int nviews = s_views[V];\n" + _stamp(0)),
-        ("    project(s_views[0], 0);\n    __syncthreads();\n",
-         "    project(s_views[0], 0);\n    __syncthreads();\n" + _stamp(1)),
-        ("    if (cur.staged) stage(s_views[0], cur, 0);\n    cp_async_commit();\n",
-         "    if (cur.staged) stage(s_views[0], cur, 0);\n    cp_async_commit();\n" + _stamp(2)),
-        ("      project(vn, buf ^ 1);\n      __syncthreads();\n",
-         "      project(vn, buf ^ 1);\n      __syncthreads();\n" + _stamp(1)),
-        ("      if (nxt.staged) stage(vn, nxt, buf ^ 1);\n      cp_async_commit();\n",
-         "      if (nxt.staged) stage(vn, nxt, buf ^ 1);\n      cp_async_commit();\n" + _stamp(2)),
-        ("    __syncthreads();  // everyone's copies of view v are visible\n",
-         "    __syncthreads();  // everyone's copies of view v are visible\n" + _stamp(3)),
-        ("    __syncthreads();  // buffers buf are free for the view after next\n",
-         "    __syncthreads();  // buffers buf are free for the view after next\n" + _stamp(4)),
-        ("    if (item_cv[k] == 0) count[n] = cnt;\n  }\n",
-         "    if (item_cv[k] == 0) count[n] = cnt;\n  }\n" + _stamp(5))],
+    "no_gather": [("      gather_view<K, kVariance>(view,",
+                   "      if (0) gather_view<K, kVariance>(view,")],
+    "no_global_atomics": [("  float4* p = reinterpret_cast<float4*>(dst);",
+                           "  if (d[0] != 1.2345e-38f) return;\n"
+                           "  float4* p = reinterpret_cast<float4*>(dst);")],
+    "no_pixel_sums": [("    for (int t = tid; t <= npx; t += nthr) s_cnt[t] = 0;",
+                       "    if (npx > 0) continue;")],
 }
+WRONG_FORWARD = {"no_gather"}
+WRONG_BACKWARD = {"no_gather", "no_global_atomics", "no_pixel_sums"}
+BACKWARD_TOL = 1e-4
 
 
 def build_variants(out_dir: Path) -> dict:
@@ -91,8 +74,6 @@ def build_variants(out_dir: Path) -> dict:
             if old not in text:
                 raise RuntimeError(f"{name}: {old!r} not found in back_project.cu")
             text = text.replace(old, new)
-        if name == "phase_clock":
-            text += CLOCK_READER
         cu = out_dir / f"{name}.cu"
         cu.write_text(text)
         so = out_dir / f"{name}.so"
@@ -108,9 +89,23 @@ def build_variants(out_dir: Path) -> dict:
     return libs
 
 
+def _backward_close(case) -> float:
+    import torch
+
+    got, want = case.backward(), case.backward_plain()
+    torch.cuda.synchronize()
+    scale = want.abs().max().item()
+    err = (got.reshape(want.shape) - want).abs().max().item()
+    if not err <= BACKWARD_TOL * scale:
+        raise AssertionError(f"backward {case.name}: error {err} over {scale}")
+    return err / scale
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", type=Path, help="also write the results here")
+    ap.add_argument("--variants-only", action="store_true",
+                    help="time the source variants, not the plans' choices")
     args = ap.parse_args()
     import torch
 
@@ -127,9 +122,8 @@ def main() -> int:
     frag = make_fragment(seed=0)
     v = frag["proj_matrices"].shape[0]
     cases = bench.cases(frag["proj_matrices"], frag["vol_origin_partial"])
-    res = {"card": card, "device_ms": {}, "phase_cycles_per_cta": {},
-           "bricks": {}}
-    library, plan_launch = bp._library, bp.plan_launch
+    res = {"card": card, "device_ms": {}, "bricks": {}, "backward_plans": {}}
+    library, plan_launch, plan_backward = bp._library, bp.plan_launch, bp.plan_backward
     try:
         for name, lib in libs.items():
             bp._library = lambda lib=bp.bind(lib): lib
@@ -137,30 +131,21 @@ def main() -> int:
                 (k_out, k_cnt), (p_out, p_cnt) = case.run(), case.plain()
                 torch.cuda.synchronize()
                 equal = torch.equal(k_out, p_out) and torch.equal(k_cnt, p_cnt)
-                if name != "no_gather" and not equal:
+                if name not in WRONG_FORWARD and not equal:
                     raise AssertionError(f"{name} {case.name}: differs from the plain version")
-                if name == "phase_clock":
-                    cycles = (ctypes.c_ulonglong * 8)()
-                    lib.bp_phases(cycles)  # clear
-                    case.run()
-                    torch.cuda.synchronize()
-                    lib.bp_phases(cycles)
-                    grid = bp.plan_launch(case.extent, case.c, case.h, case.w, v, 1,
-                                          case.mode).grid
-                    res["phase_cycles_per_cta"][case.name] = {
-                        p: cycles[j] / grid for j, p in enumerate(PHASES)}
-                    print(f"[phases] {case.name}: " + " ".join(
-                        f"{p}={cycles[j] / grid:.0f}" for j, p in enumerate(PHASES))
-                        + f" | {card}", flush=True)
-                    continue
-                ms, windows = bench.device_ms(case.run, 20)
-                res["device_ms"].setdefault(name, {})[case.name] = ms
-                print(f"[ablate] {name} {case.name}: device_ms={ms:.4f} "
-                      f"(profiled windows {windows}) | {card}", flush=True)
+                row = {"forward": bench.device_ms(case.run, 20)[0],
+                       "backward": bench.device_ms(case.backward, 20,
+                                                   bench.BACKWARD_KERNEL)[0]}
+                if name not in WRONG_BACKWARD:
+                    _backward_close(case)
+                res["device_ms"].setdefault(name, {})[case.name] = row
+                print(f"[ablate] {name} {case.name}: " + " ".join(
+                    f"{k}_ms={x:.4f}" for k, x in row.items()) + f" | {card}",
+                    flush=True)
         bp._library = library
-        for case in cases:
+        for case in [] if args.variants_only else cases:
             for brick in bp.brick_choices(case.extent, case.c, case.mode):
-                plan = bp.plan_brick(case.extent, case.c, case.h, case.w, v, 1, brick)
+                plan = bp.plan_brick(case.extent, case.c, v, 1, brick, case.mode)
                 bp.plan_launch = lambda *_, plan=plan: plan
                 (k_out, k_cnt), (p_out, p_cnt) = case.run(), case.plain()
                 torch.cuda.synchronize()
@@ -171,15 +156,50 @@ def main() -> int:
                 row = dict(device_ms=ms, ctas_per_sm=bp.occupancy(plan, case.mode),
                            plan_ctas_per_sm=plan.ctas_per_sm, grid=plan.grid,
                            threads=plan.threads, chosen=brick == plan_launch(
-                               case.extent, case.c, case.h, case.w, v, 1, case.mode).brick)
+                               case.extent, case.c, v, 1, case.mode).brick)
                 res["bricks"].setdefault(case.name, {})["x".join(map(str, brick))] = row
                 print(f"[brick] {case.name} {brick}: device_ms={ms:.4f} (profiled "
                       f"windows {windows}) " + " ".join(
                           f"{k}={x}" for k, x in row.items() if k != "device_ms")
                       + f" | {card}", flush=True)
+            bp.plan_launch = plan_launch
+            chosen = plan_backward(case.extent, case.c, case.h, case.w, v, case.mode)
+            nvec = case.c // 8
+            plans = {"per voxel": bp.per_voxel_plan(case.n, case.c, case.mode)}
+            cvecs = [] if case.mode == bp.VARIANCE else [
+                d for d in range(1, nvec + 1) if nvec % d == 0]
+            for cvec in cvecs:
+                for brick in bp.backward_brick_choices(case.extent, cvec, v):
+                    plans[f"cvec{cvec} {'x'.join(map(str, brick))}"] = (
+                        bp.plan_backward_brick(case.extent, case.c, case.h, case.w,
+                                               v, brick, cvec))
+            if cvecs:
+                best = chosen if not chosen.per_voxel else plans[
+                    f"cvec1 {'x'.join(map(str, bp.backward_brick_choices(case.extent, 1, v)[0]))}"]
+                plans[f"{'x'.join(map(str, best.brick))} cvec{best.cvec}, direct only"] = (
+                    bp.plan_backward_brick(case.extent, case.c, case.h, case.w, v,
+                                           best.brick, best.cvec, box_px=0))
+            for label, plan in plans.items():
+                bp.plan_backward = lambda *_, plan=plan: plan
+                _backward_close(case)
+                stats = torch.zeros(3, dtype=torch.int64, device="cuda")
+                case.backward(stats=stats)
+                ms, windows = bench.device_ms(case.backward, 20, bench.BACKWARD_KERNEL)
+                row = dict(device_ms=ms, ctas_per_sm=bp.occupancy(plan, case.mode),
+                           plan_ctas_per_sm=plan.ctas_per_sm, grid=plan.grid,
+                           threads=plan.threads, cvec=plan.cvec,
+                           box_px=plan.box_px,
+                           brick_views=stats.tolist(), chosen=plan == chosen)
+                res["backward_plans"].setdefault(case.name, {})[label] = row
+                print(f"[backward plan] {case.name} {label}: device_ms={ms:.4f} "
+                      f"(profiled windows {windows}) " + " ".join(
+                          f"{k}={x}" for k, x in row.items() if k != "device_ms")
+                      + f" | {card}", flush=True)
+            bp.plan_backward = plan_backward
     finally:
         bp._library = library
         bp.plan_launch = plan_launch
+        bp.plan_backward = plan_backward
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(res, indent=1))

@@ -2,9 +2,10 @@
 shapes of a full-width fragment, on one NVIDIA GPU.
 
     python eprecon_tpu_torch/tools/bench_back_project.py [--root DIR] [--out FILE]
+        [--shapes NAME ...]
 
 Per shape and direction: `ms`, the kernel's own device time (mean duration
-of its `back_project_kernel` / `back_project_backward_kernel` events under
+of its `back_project_kernel` / `back_project_backward*` events under
 torch.profiler, with 128 MB written between launches so the tables come
 from device memory, as they do in a fragment; only a profiled window with a
 record of every launch counts); `call_ms`, the wrapper's time per call
@@ -14,8 +15,9 @@ yardstick's times (the backward's: autograd of the yardstick for the same
 cotangent); and `bound_ms`, the least time the card could take.
 `--root` names the checkout whose eprecon_tpu_torch is timed (default:
 the one holding this file), so that two versions of the kernel can be
-timed on one card: run this file as a script, once per root. chip_smoke.py
-uses the same cases and also holds the kernel against the plain version.
+timed on one card: run this file as a script, once per root. `--shapes`
+times only the named shapes (default: all four). chip_smoke.py uses the
+same cases and also holds the kernel against the plain version.
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 FLUSH_BYTES = 128 << 20     # written between timed launches; L2 is 50 MB
 WINDOWS = 3                 # profiled windows tried per device time
 KERNEL = "back_project_kernel"
-BACKWARD_KERNEL = "back_project_backward_kernel"
+BACKWARD_KERNEL = "back_project_backward"  # the brick and the per-voxel kernel
 
 # (name, window dim, interval, proj scale, feature h, w, channels); the
 # first is the occupancy-init variance over a coordinate list, the others
@@ -273,6 +275,8 @@ def main() -> int:
                     default=Path(__file__).resolve().parents[2],
                     help="checkout whose eprecon_tpu_torch is timed")
     ap.add_argument("--out", type=Path, help="also write the results here")
+    ap.add_argument("--shapes", nargs="+", choices=[s[0] for s in SHAPES],
+                    help="time only these shapes")
     args = ap.parse_args()
     import torch
 
@@ -287,6 +291,8 @@ def main() -> int:
     v = frag["proj_matrices"].shape[0]
     res = {"root": str(args.root), "card": card, "shapes": {}}
     for case in cases(frag["proj_matrices"], frag["vol_origin_partial"]):
+        if args.shapes and case.name not in args.shapes:
+            continue
         for direction in ("forward", "backward")[:2 if case.backward else 1]:
             t = time_case(case, v, direction)
             res["shapes"][f"{case.name}/{direction}"] = t

@@ -6,6 +6,8 @@ may be missing, so skip tests/conftest.py, which imports it):
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -72,7 +74,7 @@ def test_window_kernel_every_brick_choice(cuda, monkeypatch, c):
     the plain version bit for bit."""
     dim = (16, 16, 16)
     for brick in bp.brick_choices(dim, c, bp.WINDOW_MEAN):
-        plan = bp.plan_brick(dim, c, 15, 20, 4, 1, brick)
+        plan = bp.plan_brick(dim, c, 4, 1, brick)
         monkeypatch.setattr(bp, "plan_launch", lambda *_, plan=plan: plan)
         (got, cnt), (want, want_cnt) = _window(cuda, dim, 1, c)
         assert torch.equal(cnt, want_cnt) and torch.equal(got, want), brick
@@ -84,7 +86,7 @@ def test_variance_kernel_every_run_choice(cuda, monkeypatch):
     args = _variance_args(cuda)
     want, want_cnt = bp.back_project_variance_plain(*args)
     for run in bp.brick_choices((512,), 32, bp.VARIANCE):
-        plan = bp.plan_brick((512,), 32, 15, 20, 4, 1, run)
+        plan = bp.plan_brick((512,), 32, 4, 1, run, bp.VARIANCE)
         monkeypatch.setattr(bp, "plan_launch", lambda *_, plan=plan: plan)
         got, cnt = bp.back_project_variance(*args)
         torch.cuda.synchronize()
@@ -95,28 +97,25 @@ def test_variance_kernel_every_run_choice(cuda, monkeypatch):
 def test_window_kernel_ragged_bricks(cuda, dim):
     """Window dims that are not multiples of the brick: the edge bricks
     mask their missing voxels."""
-    brick = bp.plan_launch(dim, 24, 15, 20, 4).brick
+    brick = bp.plan_launch(dim, 24, 4).brick
     assert any(d % s for d, s in zip(dim, brick))
     (got, cnt), (want, want_cnt) = _window(cuda, dim, 1, 24)
     assert torch.equal(cnt, want_cnt) and (cnt > 0).any()
     assert torch.equal(got, want)
 
 
-def test_window_kernel_large_boxes_fall_back(cuda):
-    """With 80 channels a staging buffer holds ~170 pixels, and with the
-    cameras 0.6 m from the window the bricks nearest them project onto
-    larger boxes: those brick-views read their corners from device memory,
-    the far ones stage. Both paths must run and agree with the plain
-    version bit for bit."""
-    stats = torch.zeros(3, dtype=torch.int64, device=cuda)
+def test_window_kernel_tallies_every_brick_view(cuda):
+    """With the cameras 0.6 m from a 32^3 window some brick-views see a
+    voxel and the cull or the frustum leaves others empty: the tallies
+    cover every (brick, view) once, and the result is bitwise the plain
+    version's."""
+    stats = torch.zeros(2, dtype=torch.int64, device=cuda)
     dim, h, w, c = (32, 32, 32), 64, 96, 80
-    plan = bp.plan_launch(dim, c, h, w, 4)
-    assert plan.patch_bytes < h * w * c * 2  # a box can outgrow a buffer
+    plan = bp.plan_launch(dim, c, 4)
     (got, cnt), (want, want_cnt) = _window(cuda, dim, 1, c, h, w, stats=stats,
                                            depth=0.6)
-    staged, from_memory, empty = stats.tolist()
-    assert staged > 0 and from_memory > 0
-    assert staged + from_memory + empty == plan.grid * 4
+    seen, empty = stats.tolist()
+    assert seen > 0 and empty > 0 and seen + empty == plan.grid * 4
     assert torch.equal(cnt, want_cnt) and (cnt > 0).any()
     assert torch.equal(got, want)
 
@@ -144,8 +143,7 @@ def test_variance_kernel_bitwise(cuda):
 
 def test_variance_kernel_two_batches_bitwise(cuda):
     """B = 2 with invalid rows: the batch boundary falls inside a row run
-    (batch 1's rows in reverse order, so both sides of it are visible),
-    whose views read device memory; the other runs stage."""
+    (batch 1's rows in reverse order, so both sides of it are visible)."""
     rng = np.random.default_rng(2)
     h, w, c = 15, 20, 32
     feats = torch.from_numpy(rng.standard_normal((4, 2, h, w, c))).to(torch.bfloat16)
@@ -155,31 +153,36 @@ def test_variance_kernel_two_batches_bitwise(cuda):
         np.concatenate([np.full((len(xyz), 1), b), xyz[::-1] if b else xyz], 1)
         for b in (0, 1)]).astype(np.int32))
     n = coords.shape[0]
-    assert len(xyz) % bp.plan_launch((n,), c, h, w, 4, 2, bp.VARIANCE).brick[0]
+    assert len(xyz) % bp.plan_launch((n,), c, 4, 2, bp.VARIANCE).brick[0]
     valid = torch.from_numpy(rng.uniform(size=n) > 0.2)
     origin = torch.tensor([[0.002, 0.001, 0.003], [0.011, 0.004, 0.002]])
-    stats = torch.zeros(3, dtype=torch.int64, device=cuda)
+    stats = torch.zeros(2, dtype=torch.int64, device=cuda)
     args = (coords.to(cuda), valid.to(cuda), origin.to(cuda), 0.05,
             feats.to(cuda), _proj(4, h, w, batch=2).to(cuda))
     got, cnt = bp.back_project_variance(*args, stats=stats)
     want, want_cnt = bp.back_project_variance_plain(*args)
     torch.cuda.synchronize()
-    assert stats[0] > 0 and stats[1] > 0
+    assert stats[0] > 0
     assert torch.equal(cnt, want_cnt) and (cnt >= 2).any()
     assert (cnt[~valid.to(cuda)] == 0).all()
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("extent,c,h,w,mode", [
-    ((110592,), 32, 60, 80, bp.VARIANCE),
-    ((24, 24, 24), 80, 30, 40, bp.WINDOW_MEAN),
-    ((48, 48, 48), 40, 60, 80, bp.WINDOW_MEAN),
-    ((96, 96, 96), 24, 120, 160, bp.WINDOW_MEAN)])
+PATH_SHAPES = [((110592,), 32, 60, 80, bp.VARIANCE),
+               ((24, 24, 24), 80, 30, 40, bp.WINDOW_MEAN),
+               ((48, 48, 48), 40, 60, 80, bp.WINDOW_MEAN),
+               ((96, 96, 96), 24, 120, 160, bp.WINDOW_MEAN)]
+
+
+@pytest.mark.parametrize("extent,c,h,w,mode", PATH_SHAPES)
 def test_card_holds_the_ctas_the_plan_assumes(cuda, extent, c, h, w, mode):
     """At the main path's four call shapes the occupancy calculator, on the
-    built kernel, fits as many CTAs per SM as the plan cut shared memory
-    for."""
-    plan = bp.plan_launch(extent, c, h, w, 9, 1, mode)
+    built kernels, fits as many CTAs per SM as the plans assume, forward and
+    backward (the plans model each instance's registers; a brick backward
+    cuts shared memory for that many)."""
+    plan = bp.plan_launch(extent, c, 9, 1, mode)
+    assert bp.occupancy(plan, mode) == plan.ctas_per_sm
+    plan = bp.plan_backward(extent, c, h, w, 9, mode)
     assert bp.occupancy(plan, mode) == plan.ctas_per_sm
 
 
@@ -275,3 +278,100 @@ def test_variance_backward_kernel_two_batches(cuda, c):
     assert (count >= 2).any() and (count[~valid] == 0).all()
     _close(got, want)
     assert got.reshape(4, 2, h, w, c)[:, 1].abs().max() > 0
+
+
+def _window_backward_case(cuda, dim=(16, 16, 16), c=24, h=15, w=20, depth=1.2,
+                          border=False):
+    """Window-mean backward inputs; `border`: 1 m voxels and _border_proj,
+    so that voxels lie exactly on u = W - 1 and v = H - 1 and one past."""
+    rng = np.random.default_rng(7)
+    feats = torch.from_numpy(rng.standard_normal((4, 1, h, w, c)).astype(np.float32))
+    voxel = 1.0 if border else 0.05
+    origin = (torch.zeros(1, 3) if border
+              else torch.tensor([[0.0013, 0.0027, 0.0031]])).to(cuda)
+    proj = (_border_proj(h, w, 4) if border else _proj(4, h, w, depth=depth)).to(cuda)
+    count = bp.back_project_window_plain(dim, 1, origin, voxel, feats.to(cuda),
+                                         proj)[1].reshape(-1)
+    ct = torch.from_numpy(rng.standard_normal((count.numel(), c))).to(
+        torch.bfloat16).to(cuda)
+    run = lambda **kw: bp._launch_backward(
+        bp.WINDOW_MEAN, None, proj.reshape(4, 1, 16), origin, None, None, ct,
+        count, 4, h, w, dim, 1, voxel, **kw)
+    want = bp.window_backward_plain(dim, 1, origin, voxel, proj,
+                                    count.reshape(dim), ct.reshape(*dim, c), h, w)
+    return run, want, dim, c, h, w
+
+
+@pytest.mark.parametrize("border", [False, True])
+def test_backward_kernel_every_brick_and_split(cuda, monkeypatch, border):
+    """Every brick and channel split (vectors per CTA) the window mean's
+    backward plan may take agrees with the plain backward, and so do a box
+    of 0 pixels (every brick-view scatters straight into the gradient) and
+    the per-voxel kernel; `border`: voxels exactly on the last pixel column
+    and row of view 0 and one past them."""
+    run, want, extent, c, h, w = (_window_backward_case(cuda, (12, 12, 12), 40, 10, 11,
+                                                        border=True) if border
+                                  else _window_backward_case(cuda))
+    nvec = c // 8
+    for cvec in (d for d in range(1, nvec + 1) if nvec % d == 0):
+        for brick in bp.backward_brick_choices(extent, cvec, 4):
+            for px in (None, 0):
+                plan = bp.plan_backward_brick(extent, c, h, w, 4, brick, cvec,
+                                              box_px=px)
+                monkeypatch.setattr(bp, "plan_backward", lambda *_, plan=plan: plan)
+                stats = torch.zeros(3, dtype=torch.int64, device=cuda)
+                got = run(stats=stats)
+                torch.cuda.synchronize()
+                _close(got.reshape(want.shape), want)
+                assert int(stats.sum()) == plan.grid * 4, (plan, stats)
+                if px == 0:
+                    assert stats[0] == 0 and stats[1] > 0
+                else:
+                    assert stats[0] > 0
+    monkeypatch.setattr(bp, "plan_backward", lambda *_: bp.per_voxel_plan(
+        math.prod(extent), c, bp.WINDOW_MEAN))
+    stats = torch.zeros(3, dtype=torch.int64, device=cuda)
+    got = run(stats=stats)
+    torch.cuda.synchronize()
+    _close(got.reshape(want.shape), want)
+    assert int(stats.sum()) == 0  # the per-voxel kernel keeps no tallies
+
+
+def test_backward_kernel_close_camera_takes_both_paths(cuda, monkeypatch):
+    """Cameras 0.6 m from a 32^3 window at 64x96 pixels, the box cut to
+    512 pixels: the far bricks' boxes fit, the near ones' do not and
+    scatter straight into the gradient; both paths run and the tallies
+    cover every (CTA, view) once."""
+    run, want, dim, c, h, w = _window_backward_case(cuda, (32, 32, 32), 80, 64,
+                                                    96, depth=0.6)
+    plan = bp.plan_backward_brick(dim, c, h, w, 4, bp.backward_brick_choices(dim, 1, 4)[0],
+                                  1, box_px=512)
+    monkeypatch.setattr(bp, "plan_backward", lambda *_: plan)
+    stats = torch.zeros(3, dtype=torch.int64, device=cuda)
+    got = run(stats=stats)
+    torch.cuda.synchronize()
+    in_box, direct, empty = stats.tolist()
+    assert in_box > 0 and direct > 0
+    assert in_box + direct + empty == plan.grid * 4
+    _close(got.reshape(want.shape), want)
+
+
+@pytest.mark.parametrize("name", ["occ_init_variance", "stage0_window",
+                                  "stage1_window", "stage2_window"])
+def test_backward_kernel_path_shapes(cuda, name):
+    """The four call shapes of a full-width fragment
+    (tools/bench_back_project.py): kernel vs plain backward."""
+    from eprecon_tpu_torch.data.synthetic import make_fragment
+    from eprecon_tpu_torch.tools import bench_back_project as bench
+
+    frag = make_fragment(seed=0)
+    (case,) = [cs for cs in bench.cases(frag["proj_matrices"],
+                                        frag["vol_origin_partial"])
+               if cs.name == name]
+    stats = torch.zeros(3, dtype=torch.int64, device=cuda)
+    got = case.backward(stats=stats)
+    want = case.backward_plain()
+    torch.cuda.synchronize()
+    _close(got.reshape(want.shape), want)
+    plan = bp.plan_backward(case.extent, case.c, case.h, case.w, 9, case.mode)
+    assert plan.per_voxel or stats[0] > 0

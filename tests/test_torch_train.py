@@ -16,11 +16,18 @@ other places; their forwards agree to 3e-2):
   * the occupancy-init path (backbone2d, neucon_net.initialization),
     whose gradient is 2 (s_v - mean) / n of the cross-view variance, a
     difference of bf16 features that nearly cancels: >= 0.75 (lowest seen
-    0.78; JAX's own gradient there moves to cosine 0.89-0.98 under half a
-    grey level of image noise);
+    0.775-0.78; under half a grey level of image noise JAX's own gradient
+    there falls to a lowest cosine of 0.70-0.82 over three draws);
   * other leaves, mostly biases and norm parameters of bf16 layers, whose
-    gradient is a sum over thousands of voxels that cancels: >= 0.94
-    (lowest seen 0.949), at most 20% of the compared leaves (17% seen).
+    gradient is a sum over thousands of voxels that cancels: >= 0.90, at
+    most 20% of the compared leaves. The floor is JAX's own spread, not the
+    port's: JAX against itself under half a grey level of image noise
+    reaches 0.921-0.936 on these leaves (three noise draws, 69-85 of 611
+    below 0.99; `jax_noise_cosines` at the end of this file measures it).
+    The port's lowest depends on the host, whose XLA-CPU
+    rounds JAX's bf16 at other places: 0.949 (17% below 0.99) on one
+    host, 0.936 (82 of 611) on another, with and without the persistent
+    compile cache.
 The Trainer's own tests (batch statistics, optimizer, checkpoint) are
 port-only: its optimizer is held against optax in test_torch_train_state.py.
 """
@@ -67,9 +74,9 @@ def _model_config():
                                min_stage_voxels=1, panoptic=pan)
 
 
-@pytest.fixture(scope="module")
-def jax_step(f32_variance):
-    """JAX loss terms and gradients of one fragment, computed once."""
+def _jax_problem():
+    """The fragment, the model's random variables and one JAX training
+    step's loss terms and gradients as a function of the images."""
     m = _model_config()
     d = jsyn.make_fragment(n_views=VIEWS, image_hw=HW, n_vox=m.n_vox,
                            voxel_size=m.voxel_size, seed=0)
@@ -81,16 +88,39 @@ def jax_step(f32_variance):
                               tuple(jnp.asarray(x) for x in d["occ_levels"]),
                               jnp.asarray(d["semantic"]), jnp.asarray(d["instance"]))
     model = EPRecon(m, use_running_average=True)
-    imgs, state = jnp.asarray(d["imgs"]), jax_state(m)
-    variables = random_variables(model, imgs, frag, state, targets, seed=0)
+    state = jax_state(m)
+    variables = random_variables(model, jnp.asarray(d["imgs"]), frag, state,
+                                 targets, seed=0)
     params = variables["params"]
     aux = {k: v for k, v in variables.items() if k != "params"}
     step = jax.jit(jax.value_and_grad(
         lambda p, a, i, f, t, r: fragment_loss_fn(model, p, a, i, f, t, r),
         has_aux=True))
-    (_, (metrics, _, _)), grads = step(params, aux, imgs, frag, targets, state)
-    return dict(m=m, d=d, variables=variables, metrics=to_np(metrics),
-                grads=to_np(grads))
+
+    def run(imgs):
+        (_, (metrics, _, _)), grads = step(params, aux, jnp.asarray(imgs),
+                                           frag, targets, state)
+        return to_np(metrics), to_np(grads)
+
+    return m, d, variables, run
+
+
+@pytest.fixture(scope="module")
+def jax_step(f32_variance):
+    """JAX loss terms and gradients of one fragment, computed once."""
+    m, d, variables, run = _jax_problem()
+    metrics, grads = run(d["imgs"])
+    return dict(m=m, d=d, variables=variables, metrics=metrics, grads=grads)
+
+
+_JAX_VARIANCE = jbp.back_project_variance
+
+
+def _variance_in_f32(coords, valid, origin, voxel_size, feats, proj,
+                     bp_backward="scatter"):
+    var, count = _JAX_VARIANCE(coords, valid, origin, voxel_size,
+                               feats.astype(jnp.float32), proj, bp_backward)
+    return var.astype(feats.dtype), count
 
 
 @pytest.fixture(scope="module")
@@ -98,15 +128,8 @@ def f32_variance():
     """The JAX occupancy init with its variance summed in f32, as the
     port sums it (in bf16, E[x^2] - E[x]^2 cancels: ROADMAP.md, known
     differences); the features and the result stay bf16."""
-    variance = jbp.back_project_variance
-
-    def f32(coords, valid, origin, voxel_size, feats, proj, bp_backward="scatter"):
-        var, count = variance(coords, valid, origin, voxel_size,
-                              feats.astype(jnp.float32), proj, bp_backward)
-        return var.astype(feats.dtype), count
-
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(joi, "back_project_variance", f32)
+        mp.setattr(joi, "back_project_variance", _variance_in_f32)
         yield
 
 
@@ -145,7 +168,7 @@ def test_losses_and_gradients_match_jax(jax_step):
     init = {n: c for n, c in low.items() if n.startswith(INIT_PATH)}
     other = {n: c for n, c in low.items() if n not in init}
     assert min(init.values(), default=1) >= 0.75, init
-    assert min(other.values(), default=1) >= 0.94, other
+    assert min(other.values(), default=1) >= 0.90, other
     assert len(other) <= 0.2 * len(cosines), len(other)
     assert np.median(list(cosines.values())) >= 0.99
 
@@ -247,3 +270,45 @@ def test_only_init_trains_the_initialization():
     assert any(not torch.equal(p, params0[n])
                for n, p in trainer.model.named_parameters()
                if n.startswith("neucon_net.initialization."))
+
+
+def jax_noise_cosines(draws: int = 3, seed: int = 123):
+    """Per draw of half a grey level of uniform image noise: the lowest
+    cosine of JAX's gradient with the noise against JAX's without, over
+    the "other" leaves that test_losses_and_gradients_match_jax compares,
+    how many of them fall below 0.99, and the occupancy-init path's lowest.
+    The test's floors come from these. Run from the repository's root:
+
+        JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_train.py
+    """
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(joi, "back_project_variance", _variance_in_f32)
+        m, d, variables, run = _jax_problem()
+        model = load(te.EPRecon(port_model_config(m), use_running_average=True),
+                     variables)
+        base = tree_to_torch(model, run(d["imgs"])[1])
+        norms = {n: float(w.norm()) for n, w in base.items()}
+        names = [n for n in base if norms[n] > 1e-3 * max(norms.values())]
+        rng = np.random.default_rng(seed)
+        out = []
+        for _ in range(draws):
+            noisy = np.clip(d["imgs"] + rng.uniform(-0.5, 0.5, d["imgs"].shape),
+                            0, 255).astype(np.float32)
+            grads = tree_to_torch(model, run(noisy)[1])
+            cos = {n: float((grads[n] * base[n]).sum()
+                            / (grads[n].norm() * base[n].norm())) for n in names}
+            other = [c for n, c in cos.items() if not n.startswith(INIT_PATH)]
+            init = [c for n, c in cos.items() if n.startswith(INIT_PATH)]
+            out.append((min(other), sum(c < 0.99 for c in other), min(init)))
+        return out
+
+
+if __name__ == "__main__":
+    import os
+
+    os.environ.setdefault("XLA_FLAGS", "--xla_backend_optimization_level=0 "
+                          "--xla_llvm_disable_expensive_passes=true")
+    jax.config.update("jax_platforms", "cpu")
+    for i, (lo, below, init) in enumerate(jax_noise_cosines()):
+        print(f"noise draw {i}: other leaves' lowest cosine {lo:.4f} ({below} "
+              f"below 0.99); occupancy-init path's lowest {init:.4f}")
