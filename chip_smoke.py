@@ -41,14 +41,35 @@ Phases (any failure exits non-zero before the result line):
      group; parameters move on each update and not between; 4 forward and
      4 backward kernel launches per step; the maps finite and growing.
      Prints step ms (step 0 and the median of steps 3-6) and peak GiB;
-  6. reference checks at tiny size: the same forward, and one training
+  6. the CLI (eprecon_tpu_torch.main.main, in this process) at full width
+     over a ScanNet-layout tree in a temporary directory: 2 scenes of 3
+     fragments of 9 views of the port's synthetic scenes, color at
+     ScanNet's 1296x968 and depth at 640x480 (rendered once on a thread
+     pool: the tree holds no image files, and a dataset registered here
+     serves the frames through the port's ScanNetDataset, whose readers
+     alone it replaces), full-scene GT fused on the card. config/train.yaml
+     with the training phase's reductions: one epoch (6 micro-steps), a
+     resumed second epoch, then config/test.yaml from the last checkpoint,
+     scoring both scenes against the tree's GT. Fails unless every
+     training step launched 4 forward and 4 backward kernels and every test
+     fragment 4 forward, every GT fusion of the data pipeline ran on
+     cuda, the resume starts at epoch 1 step 6 and ends at epoch 2 step 12
+     with parameters moved, metrics.jsonl holds one record per step, the
+     losses are finite and both scenes are saved with a finite TSDF and
+     scored. Prints the loop's step ms and sample ms per step, host ms per
+     sample by stage, the test's fragment ms, keyframes/s and p50, the
+     scores (F-score, PQ) and the peak memory;
+  7. reference checks at tiny size: the same forward, and one training
      micro-step, on CUDA and on the CPU (the CPU port is held against the
      JAX package by tests/test_torch_forward.py and test_torch_train.py).
 Prints ptxas's registers and spills per kernel instance, the card's name
-and power limit, a JSON line of kernel results,
-and as the last line {"ok": true, "device": {...}}. Full results also go
-to chiprun_out/chip_smoke.json.
+and power limit, a JSON line of kernel results (`launches` from the
+serving path, `train_launches` from the training phase, `cli_launches`
+from the CLI phase), and as the last line {"ok": true, "device": {...}}.
+Full results also go to chip_smoke.json in the output directory beside
+the script.
 """
+import ast
 import dataclasses
 import json
 import re
@@ -446,6 +467,421 @@ def train_reference_phase(card):
     return dict(loss_rel_err=rel, grad_cosine=cos)
 
 
+# --------------------------------------------------------------------------
+# cli phase: the CLI (eprecon_tpu_torch.main) over a ScanNet-layout tree
+# --------------------------------------------------------------------------
+
+CLI_DATASET = "chip_smoke_synthetic"
+CLI_SCENES, CLI_FRAGMENTS, CLI_VIEWS = 2, 3, 9
+CLI_COLOR_HW, CLI_DEPTH_HW = (968, 1296), (480, 640)   # ScanNet's raw sizes
+CLI_TRAIN_STEPS = CLI_SCENES * CLI_FRAGMENTS            # per epoch
+CLI_REDUCED = ["train.accumulation_steps", "2", "model.thresholds",
+               "[-100,-100,-100]", "model.occ_init_threshold", "0"]
+
+
+def scannet_intrinsics():
+    """(depth, color) intrinsics with ScanNet's split: after the 968 -> 972
+    pad and the resize to 640x480, the color intrinsics land on the depth
+    intrinsics, as on real ScanNet."""
+    import numpy as np
+
+    (dh, dw), (ch, cw) = CLI_DEPTH_HW, CLI_COLOR_HW
+    f = 0.9 * dw / 2
+    depth = np.array([[f, 0, dw / 2 - 0.5], [0, f, dh / 2 - 0.5], [0, 0, 1]])
+    color = depth.copy()
+    color[0] *= cw / dw
+    color[1] *= (ch + 4) / dh
+    color[1, 2] -= 2
+    return depth, color
+
+
+class SyntheticFrames:
+    """Frames of the port's synthetic scenes (data/synthetic.py): an orbit
+    of CLI_FRAGMENTS * CLI_VIEWS poses per scene; color (BGR, integer
+    levels) at 1296x968 and depth at 640x480, rendered once and cached."""
+
+    def __init__(self):
+        import numpy as np
+        from eprecon_tpu_torch.data.synthetic import make_scene, orbit_poses
+
+        n = CLI_FRAGMENTS * CLI_VIEWS
+        self.scenes = {f"scene{s:04d}_00": (make_scene(s), orbit_poses(
+            n, start=0.5 * s, sweep=2 * np.pi * (n - 1) / n))
+                       for s in range(CLI_SCENES)}
+        self.depth_intr, self.color_intr = scannet_intrinsics()
+        self.cache = {}
+
+    def _render(self, key):
+        import numpy as np
+        from eprecon_tpu_torch.data.synthetic import render_view
+
+        scene, kind, i = key
+        sc, poses = self.scenes[scene]
+        if kind == "color":
+            rgb = render_view(sc, self.color_intr, poses[i], CLI_COLOR_HW)[1]
+            return np.clip(np.round(rgb), 0, 255).astype(np.float32)
+        return render_view(sc, self.depth_intr, poses[i], CLI_DEPTH_HW)[0]
+
+    def get(self, scene: str, kind: str, i: int):
+        key = (scene, kind, i)
+        if key not in self.cache:
+            self.cache[key] = self._render(key)
+        return self.cache[key]
+
+    def render_all(self, threads: int = 8):
+        """Fill the cache on a thread pool (numpy releases the GIL)."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        keys = [(s, k, i) for s in self.scenes for k in ("depth", "color")
+                for i in range(CLI_FRAGMENTS * CLI_VIEWS)]
+        with ThreadPoolExecutor(threads) as ex:
+            for key, img in zip(keys, ex.map(self._render, keys)):
+                self.cache[key] = img
+
+
+def register_synthetic_dataset(frames: SyntheticFrames):
+    """Register CLI_DATASET: the port's ScanNetDataset with only its image
+    readers replaced (the tree holds no image files, and the script needs
+    no image decoder): they serve the rendered frames. Everything from
+    _build_sample on is the package's code."""
+    from eprecon_tpu_torch.data.scannet import ScanNetDataset, register_dataset
+
+    @register_dataset(CLI_DATASET)
+    class SyntheticScanNet(ScanNetDataset):
+        def _frame(self, path, kind):
+            p = Path(path)
+            return frames.get(p.parents[1].name, kind, int(p.stem))
+
+        def _read_img(self, path):
+            return self._frame(path, "color").copy()
+
+        def _read_depth(self, path):
+            d = self._frame(path, "depth").copy()
+            d[d > 3.0] = 0.0  # the ScanNet reader's depth clamp
+            return d
+
+        def _color_size(self, scene, vid):
+            return CLI_COLOR_HW
+
+    return SyntheticScanNet
+
+
+def write_cli_tree(root: Path, frames: SyntheticFrames, device: str = "cuda"):
+    """The ScanNet layout without image files: intrinsics and pose .txt,
+    full-scene GT at three levels fused on the card with the port's
+    ops/tsdf_fusion (the GT generator's layout: full_tsdf_layer*.npz,
+    tsdf_info.npz, label volumes), fragments_{train,test}.pkl."""
+    import pickle
+
+    import numpy as np
+    import torch
+    from eprecon_tpu_torch.data.synthetic import voxel_labels
+    from eprecon_tpu_torch.data.transforms import get_view_frustum
+    from eprecon_tpu_torch.ops import tsdf_fusion
+
+    metas = []
+    for name, (scene, poses) in frames.scenes.items():
+        src = root / "scans" / name
+        for sub in ("intrinsic", "pose"):
+            (src / sub).mkdir(parents=True, exist_ok=True)
+        for fname, k in (("intrinsic_color.txt", frames.color_intr),
+                         ("intrinsic_depth.txt", frames.depth_intr)):
+            k4 = np.eye(4)
+            k4[:3, :3] = k
+            np.savetxt(src / "intrinsic" / fname, k4)
+        for i, pose in enumerate(poses):
+            np.savetxt(src / "pose" / f"{i}.txt", pose)
+        depths = np.stack([frames.get(name, "depth", i) for i in range(len(poses))])
+        depths[depths > 3.0] = 0.0
+        pts = np.concatenate([get_view_frustum(3.0, CLI_DEPTH_HW, frames.depth_intr,
+                                               p) for p in poses], axis=1)
+        lo, hi = pts.min(1), pts.max(1)
+        origin = lo.astype(np.float32)
+        gt = root / "all_tsdf_9" / name
+        gt.mkdir(parents=True)
+        dev = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+        k = np.repeat(frames.depth_intr[None], len(poses), 0)
+        for lvl in range(3):
+            vsz = 0.04 * 2 ** lvl
+            dim = tuple(int(np.ceil((hi[i] - lo[i]) / vsz)) for i in range(3))
+            t, _ = tsdf_fusion.fuse_frames(dev(depths), dev(k), dev(poses),
+                                           dev(origin), dim, vsz, margin=3)
+            t = t.cpu().numpy()
+            np.savez_compressed(gt / f"full_tsdf_layer{lvl}.npz", t)
+            if lvl == 0:
+                occ = np.abs(t) < 0.999
+                sem, ins = voxel_labels(scene, origin, vsz, dim)
+                for label, vol in (("semantic", sem), ("instance", ins)):
+                    np.savez_compressed(gt / f"full_{label}_layer_interpolate0.npz",
+                                        np.where(occ, vol, 0).astype(np.int32))
+        np.savez(gt / "tsdf_info.npz", vol_origin=origin, voxel_size=np.float32(0.04))
+        metas += [dict(scene=name, fragment_id=f, vol_origin=origin,
+                       image_ids=list(range(f * CLI_VIEWS, (f + 1) * CLI_VIEWS)))
+                  for f in range(CLI_FRAGMENTS)]
+    for split in ("train", "test"):
+        with open(root / "all_tsdf_9" / f"fragments_{split}.pkl", "wb") as f:
+            pickle.dump(metas, f)
+    (root / "scans_test").symlink_to(root / "scans")
+
+
+class _Tee:
+    """stdout that is also kept, line by line."""
+
+    def __init__(self, out):
+        self.out, self.lines, self._buf = out, [], ""
+
+    def write(self, text):
+        self.out.write(text)
+        self._buf += text
+        *done, self._buf = self._buf.split("\n")
+        self.lines += done
+        return len(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _run_cli(args):
+    """eprecon_tpu_torch.main.main(args) in this process; returns (its
+    result, the lines it printed)."""
+    import contextlib
+
+    from eprecon_tpu_torch import main as cli
+
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        out = cli.main(args)
+    return out, tee.lines
+
+
+def time_sample_stages(dataset, indices):
+    """Host ms per sample, by stage, with the card synchronised at each
+    stage's end: frame reads, resize, the world-frame transform (its GT
+    fusion on the card apart), projections, and the whole sample."""
+    import numpy as np
+    import torch
+    from eprecon_tpu_torch.ops import tsdf_fusion
+
+    acc = {}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            acc[name] = acc.get(name, 0.0) + 1e3 * (time.perf_counter() - t0)
+            return out
+        return run
+
+    stages, fuse = dataset.transforms.transforms, tsdf_fusion.fuse_frames
+    names = ["resize", "world_transform_and_gt", "projection"]
+    dataset.transforms.transforms = [timed(n, t) for n, t in zip(names, stages)]
+    for r in ("_read_img", "_read_depth", "_read_cam"):
+        setattr(dataset, r, timed("read", getattr(dataset, r)))
+    tsdf_fusion.fuse_frames = timed("gt_fusion", tsdf_fusion.fuse_frames)
+    try:
+        per = []
+        for i in indices:
+            acc.clear()
+            t0 = time.perf_counter()
+            dataset[i]
+            torch.cuda.synchronize()
+            per.append(dict(acc, total=1e3 * (time.perf_counter() - t0)))
+    finally:
+        dataset.transforms.transforms = stages
+        del dataset._read_img, dataset._read_depth, dataset._read_cam
+        tsdf_fusion.fuse_frames = fuse
+    return {k: float(np.median([p.get(k, 0.0) for p in per])) for k in per[0]}
+
+
+def cli_phase(card):
+    """Train, resume and test through the CLI at full width over a
+    ScanNet-layout tree of the port's synthetic scenes; the GT fusion of
+    the data pipeline runs on the card."""
+    import gc
+    import pickle
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from eprecon_tpu_torch import main as cli
+    from eprecon_tpu_torch.config import load_config, parse_cli_overrides
+    from eprecon_tpu_torch.inference.pipeline import StreamingReconstructor
+    from eprecon_tpu_torch.ops import back_project as bp
+    from eprecon_tpu_torch.ops import tsdf_fusion
+    from eprecon_tpu_torch.train.state import Trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="eprecon_cli_"))
+    try:
+        frames = SyntheticFrames()
+        t0 = time.perf_counter()
+        frames.render_all()
+        render_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        write_cli_tree(root, frames)
+        tree_s = time.perf_counter() - t0
+        register_synthetic_dataset(frames)
+        logdir = root / "run"
+        common = ["train.path", str(root), "test.path", str(root), "logdir",
+                  str(logdir), "dataset", CLI_DATASET, "summary_freq", "1",
+                  *CLI_REDUCED]
+        print(f"[cli] tree of {CLI_SCENES} scenes x {CLI_FRAGMENTS} fragments x "
+              f"{CLI_VIEWS} views (color {CLI_COLOR_HW[1]}x{CLI_COLOR_HW[0]}, "
+              f"depth {CLI_DEPTH_HW[1]}x{CLI_DEPTH_HW[0]}): frames rendered in "
+              f"{render_s:.1f} s, GT written in {tree_s:.1f} s; reduced from "
+              f"config/*.yaml: {CLI_REDUCED} | {card}", flush=True)
+
+        # instrumentation: launches per training step and per test fragment,
+        # the device of every GT fusion of the data pipeline
+        per_step, per_frag, fusion_devices = [], [], []
+        step, process = Trainer.step, StreamingReconstructor.process_fragment
+        fuse = tsdf_fusion.fuse_frames
+
+        def counted(fn, out_list):
+            def run(*a, **kw):
+                before = (bp.total_launches(), bp.total_backward_launches())
+                out = fn(*a, **kw)
+                out_list.append((bp.total_launches() - before[0],
+                                 bp.total_backward_launches() - before[1]))
+                return out
+            return run
+
+        def fuse_recorded(depths, *a, **kw):
+            fusion_devices.append(depths.device.type)
+            return fuse(depths, *a, **kw)
+
+        Trainer.step = counted(step, per_step)
+        StreamingReconstructor.process_fragment = counted(process, per_frag)
+        tsdf_fusion.fuse_frames = fuse_recorded
+        bp.launch_counts.clear()
+        bp.backward_launch_counts.clear()
+        try:
+            t0 = time.perf_counter()
+            tr1, log1 = _run_cli(["--cfg", "config/train.yaml", *common,
+                                  "train.epochs", "1"])
+            train1_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            tr2, log2 = _run_cli(["--cfg", "config/train.yaml", *common,
+                                  "train.epochs", "2", "resume", "true"])
+            train2_s = time.perf_counter() - t0
+            del tr1, tr2
+            gc.collect()
+            t0 = time.perf_counter()
+            results, log3 = _run_cli(["--cfg", "config/test.yaml", *common,
+                                      "loadckpt", str(logdir / "model_000001")])
+            test_s = time.perf_counter() - t0
+        finally:
+            Trainer.step, StreamingReconstructor.process_fragment = step, process
+            tsdf_fusion.fuse_frames = fuse
+        launches = dict(bp.launch_counts)
+        backward_launches = dict(bp.backward_launch_counts)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        # checks
+        steps = 2 * CLI_TRAIN_STEPS
+        if per_step != [(4, 4)] * steps:
+            raise AssertionError(f"training steps launched {per_step} forward/"
+                                 f"backward kernels, want (4, 4) x {steps}")
+        n_test = CLI_SCENES * CLI_FRAGMENTS
+        if per_frag != [(4, 0)] * n_test:
+            raise AssertionError(f"test fragments launched {per_frag}, want "
+                                 f"(4, 0) x {n_test}")
+        if not fusion_devices or set(fusion_devices) != {"cuda"}:
+            raise AssertionError(f"GT fusion ran on {sorted(set(fusion_devices))}")
+        resumed = [x for x in log2 if x.startswith("resumed from ")]
+        if not (len(resumed) == 1 and resumed[0].endswith(
+                f"model_000000 at epoch 1, step {CLI_TRAIN_STEPS}")):
+            raise AssertionError(f"resume: {resumed}")
+        ckpts = sorted(x.name for x in logdir.glob("model_*"))
+        if ckpts != ["model_000000", "model_000001"]:
+            raise AssertionError(f"checkpoints {ckpts}")
+        state = [torch.load(logdir / c, map_location="cpu", weights_only=True)
+                 for c in ckpts]
+        if [(x["epoch"], x["step"]) for x in state] != [(1, CLI_TRAIN_STEPS),
+                                                         (2, steps)]:
+            raise AssertionError(f"checkpoint epochs/steps "
+                                 f"{[(x['epoch'], x['step']) for x in state]}")
+        if all(torch.equal(a, state[1]["model"][n])
+               for n, a in state[0]["model"].items()):
+            raise AssertionError("parameters did not move in the resumed epoch")
+        del state
+        records = [json.loads(x) for x in (logdir / "metrics.jsonl").open()]
+        if [r["step"] for r in records] != list(range(1, steps + 1)):
+            raise AssertionError(f"metrics.jsonl steps {[r['step'] for r in records]}")
+        loss_keys = [k for k in records[0] if "loss" in k]
+        if not all(np.isfinite(r[k]) for r in records for k in loss_keys):
+            raise AssertionError("non-finite training loss in metrics.jsonl")
+        eval_line = [x for x in log3 if x.startswith("eval losses over ")]
+        eval_means = (ast.literal_eval(eval_line[0].split(": ", 1)[1])
+                      if eval_line else {})
+        if not (eval_means and all(np.isfinite(v) for v in eval_means.values())):
+            raise AssertionError(f"eval losses: {eval_line}")
+        scenes_dir = logdir / "scenes"
+        scores = {}
+        for name in frames.scenes:
+            with np.load(scenes_dir / f"{name}.npz") as z:
+                if not (np.isfinite(z["tsdf"]).all() and (np.abs(z["tsdf"]) < 1).any()):
+                    raise AssertionError(f"scene {name}: no finite surface")
+            mfile = scenes_dir / f"{name}_metrics.json"
+            if not mfile.is_file():
+                raise AssertionError(f"scene {name}: not scored")
+            scores[name] = json.loads(mfile.read_text())
+        if sorted(r.name for r in results) != sorted(frames.scenes):
+            raise AssertionError(f"run_test returned {[r.name for r in results]}")
+
+        # numbers
+        step_ms = [r["step_ms"] for r in records]
+        sample_ms = [r["sample_ms"] for r in records]
+        steady = [x for i, x in enumerate(step_ms) if i % CLI_TRAIN_STEPS]
+        epochs = [float(re.search(r"\(([0-9.]+)s\)$", x).group(1))
+                  for x in log1 + log2 if x.startswith("epoch ")]
+        frag_ms = [float(re.search(r": ([0-9.]+) ms", x).group(1))
+                   for x in log3 if x.startswith("fragment ")]
+        summary = re.search(r"\(([0-9.]+) keyframes/s, p50 fragment ([0-9.]+) ms\)",
+                            log3[-1])
+        train_ds = cli.build_dataset(load_config(
+            str(REPO / "config/train.yaml"), parse_cli_overrides(common)), "train")
+        stages = time_sample_stages(train_ds, range(len(train_ds)))
+        del train_ds, results
+        wall = time.perf_counter() - t_phase
+        res = dict(
+            train_step_ms=step_ms, train_sample_ms=sample_ms,
+            train_steady_step_ms=float(np.median(steady)),
+            train_steady_sample_ms=float(np.median(
+                [x for i, x in enumerate(sample_ms) if i % CLI_TRAIN_STEPS])),
+            epoch_s=epochs, test_fragment_ms=frag_ms,
+            test_keyframes_per_s=float(summary.group(1)),
+            test_p50_fragment_ms=float(summary.group(2)),
+            sample_stage_ms=stages, eval_loss_means=eval_means, scores=scores,
+            peak_gib=peak, wall_s=wall, render_s=render_s, tree_s=tree_s,
+            run_s=dict(train=train1_s, resume=train2_s, test=test_s),
+            reduced=CLI_REDUCED, color_hw=list(CLI_COLOR_HW))
+        print(f"[cli] train through train_epochs: step ms {[round(x, 1) for x in step_ms]}"
+              f"; steady (median of steps after each epoch's first) "
+              f"{res['train_steady_step_ms']:.1f} ms, of it sample "
+              f"{res['train_steady_sample_ms']:.1f} ms; epochs {epochs} s | {card}",
+              flush=True)
+        print(f"[cli] host ms per sample (median, card synchronised per stage): "
+              f"{ {k: round(v, 1) for k, v in stages.items()} } | {card}", flush=True)
+        print(f"[cli] test: fragment ms {[round(x, 1) for x in frag_ms]}, "
+              f"{res['test_keyframes_per_s']} keyframes/s, p50 "
+              f"{res['test_p50_fragment_ms']} ms; eval losses {eval_means}; "
+              + "; ".join(f"{n} fscore={m.get('fscore', float('nan')):.4f} "
+                          f"PQ={m.get('PQ', float('nan')):.4f}"
+                          for n, m in scores.items()) + f" | {card}", flush=True)
+        print(f"[cli] peak memory {peak:.2f} GiB; phase wall {wall:.1f} s "
+              f"(render {render_s:.1f}, tree {tree_s:.1f}, train {train1_s:.1f}, "
+              f"resume {train2_s:.1f}, test {test_s:.1f}) | {card}", flush=True)
+        return res, launches, backward_launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -486,16 +922,25 @@ def main() -> int:
     main_res, launches = main_path_phase(card)
     train_res, train_fwd, train_bwd = train_phase(card)
     for k in kern:
-        key = tuple(k.pop("key"))
+        key = tuple(k["key"])
         k["launches"] = int(launches.get(key, 0))
         k["train_launches"] = int(train_fwd.get(key, 0))
         if k["launches"] == 0 or k["train_launches"] == 0:
             raise AssertionError(f"{k['name']}: not launched on the main path")
     for k in kern_bwd:
-        k["launches"] = int(train_bwd.get(tuple(k.pop("key")), 0))
+        k["launches"] = int(train_bwd.get(tuple(k["key"]), 0))
         if k["launches"] != TRAIN_STEPS:
             raise AssertionError(f"{k['name']}: {k['launches']} launches in "
                                  f"{TRAIN_STEPS} training steps")
+    cli_res, cli_fwd, cli_bwd = cli_phase(card)
+    for k in kern:
+        k["cli_launches"] = int(cli_fwd.get(tuple(k["key"]), 0))
+    for k in kern_bwd:
+        k["cli_launches"] = int(cli_bwd.get(tuple(k["key"]), 0))
+    for k in kern + kern_bwd:
+        k.pop("key")
+        if k["cli_launches"] == 0:
+            raise AssertionError(f"{k['name']}: not launched by the CLI")
     kern = kern + kern_bwd
     ref = reference_phase(card)
     ref["train"] = train_reference_phase(card)
@@ -504,7 +949,7 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, build_s=build_s, ptxas=ptxas, kernels=kern, main_path=main_res,
-        train=train_res, reference=ref), indent=1))
+        train=train_res, cli=cli_res, reference=ref), indent=1))
     print(json.dumps({"kernels": kern}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,8 @@
 eprecon_tpu/ops/tsdf_fusion.py:41-103; reference tools/tsdf_fusion/
 fusion.py:440-485): nearest-pixel depth lookup, truncation to [., 1],
 running weighted average. It makes the ground truth of the synthetic
-fragments, off the hot path.
+fragments and, on the model's device, the per-sample GT of the data
+pipeline (data/transforms.py).
 """
 from __future__ import annotations
 

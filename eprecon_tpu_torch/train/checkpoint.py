@@ -40,6 +40,15 @@ def restore_checkpoint(path: str, trainer: Trainer) -> Trainer:
     return trainer
 
 
+def restore_model(path: str, model: nn.Module) -> nn.Module:
+    """Load the model of a checkpoint into `model` (reference main.py:
+    362-367, the test-mode load_state_dict)."""
+    device = next(model.parameters()).device
+    model.load_state_dict(torch.load(path, map_location=device,
+                                     weights_only=True)["model"])
+    return model
+
+
 def restore_submodule(path: str, model: nn.Module, prefix: str) -> nn.Module:
     """Warm-start only the tensors of `model` whose state_dict name starts
     with `prefix` (flax '/' paths are accepted), from the model of a

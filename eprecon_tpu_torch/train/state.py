@@ -9,7 +9,7 @@ adam with a piecewise-constant schedule, under MultiSteps (the running
 mean of k micro-steps' gradients, one update every k micro-steps; the
 schedule counts updates). Frozen parameters take no update, which is what
 zeroing their gradients before the optax chain gives. The sharded
-multi-card step, the epoch loop and the CLI are later slices.
+multi-card step is a later slice; the epoch loop is train/loop.py.
 """
 from __future__ import annotations
 

@@ -42,6 +42,27 @@ def test_port_imports_without_jax():
     assert int(out.stdout.split()[-1]) >= 20
 
 
+def test_port_imports_without_yaml_or_image_decoders():
+    """Every module of eprecon_tpu_torch imports with yaml, cv2, PIL and
+    skimage made unimportable (a GPU host need not have them), and
+    the CLI's config loading needs no yaml."""
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "for name in ('yaml', 'cv2', 'PIL', 'skimage'):\n"
+        "    sys.modules[name] = None\n"
+        "import eprecon_tpu_torch as pkg\n"
+        "for m in pkgutil.walk_packages(pkg.__path__, 'eprecon_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from eprecon_tpu_torch.config import load_config\n"
+        "cfg = load_config('config/train.yaml', [('model.voxel_size', 0.08)])\n"
+        "print(cfg.model.n_vox, cfg.train.accumulation_steps)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["(96,", "96,", "96)", "8"]
+
+
 def _imported_roots(path: Path):
     roots = set()
     for node in ast.walk(ast.parse(path.read_text())):

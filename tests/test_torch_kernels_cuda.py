@@ -375,3 +375,69 @@ def test_backward_kernel_path_shapes(cuda, name):
     _close(got.reshape(want.shape), want)
     plan = bp.plan_backward(case.extent, case.c, case.h, case.w, 9, case.mode)
     assert plan.per_voxel or stats[0] > 0
+
+
+def test_train_epochs_launches_both_kernels_each_step(cuda, tmp_path):
+    """train_epochs on the card at the micro config (16^3 window at 24 cm,
+    16-query 1-layer decoder; 3 views at 48x64): every micro-step launches
+    the forward kernel 4 times and the backward kernel 4 times."""
+    import dataclasses
+
+    from eprecon_tpu_torch.config import default_config
+    from eprecon_tpu_torch.data.synthetic import make_fragment
+    from eprecon_tpu_torch.models.eprecon import EPRecon
+    from eprecon_tpu_torch.train.loop import train_epochs
+    from eprecon_tpu_torch.train.state import Trainer
+
+    cfg = default_config()
+    m = dataclasses.replace(
+        cfg.model, n_vox=(16, 16, 16), voxel_size=0.24,
+        voxel_capacity=(128, 512, 2048), global_extent=(32, 32, 16),
+        min_init_voxels=10, min_stage_voxels=5,
+        panoptic=dataclasses.replace(cfg.model.panoptic, num_queries=16,
+                                     dec_layers=1, max_instances=8,
+                                     hidden_dim=16, nheads=4))
+    cfg = dataclasses.replace(cfg, model=m, logdir=str(tmp_path), train=dataclasses.replace(
+        cfg.train, epochs=1, accumulation_steps=2))
+    samples = []
+    for angle in (0.0, 0.3):
+        d = make_fragment(n_views=3, image_hw=(48, 64), n_vox=m.n_vox,
+                          voxel_size=m.voxel_size, start_angle=angle)
+        samples.append(dict(
+            scene="a", imgs=list(d["imgs"]), proj_matrices=d["proj_matrices"],
+            vol_origin=d["vol_origin_partial"] - 0.48,
+            vol_origin_partial=d["vol_origin_partial"],
+            world_to_aligned_camera=d["world_to_aligned_camera"],
+            tsdf_list=d["tsdf_levels"], occ_list=d["occ_levels"],
+            semantic=d["semantic"], instance=d["instance"]))
+    trainer = Trainer(cfg, EPRecon(m, seed=1), cuda, steps_per_epoch=2)
+    step, launched = trainer.step, []
+
+    def counted(*args):
+        before = (bp.total_launches(), bp.total_backward_launches())
+        out = step(*args)
+        launched.append((bp.total_launches() - before[0],
+                         bp.total_backward_launches() - before[1]))
+        return out
+
+    trainer.step = counted
+    train_epochs(cfg, trainer, lambda epoch: iter(samples), log_fn=lambda _: None)
+    assert launched == [(4, 4), (4, 4)]
+    assert (trainer.step_count, trainer.epoch) == (2, 1)
+    assert (tmp_path / "model_000000").is_file()
+
+
+def test_time_fn_waits_for_work_that_returns_nothing():
+    """utils.benchmark.time_fn stops its clock after the card has finished,
+    also for a function that returns None: torch.cuda._sleep enqueues a
+    kernel that spins for a number of clock cycles and returns at once.
+    1e8 cycles take at least 50 ms at the H100's highest clock (1980 MHz);
+    enqueueing them takes microseconds."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from eprecon_tpu_torch.utils import benchmark
+
+    torch.cuda.init()
+    ms = benchmark.time_fn(lambda: torch.cuda._sleep(100_000_000), iters=3,
+                           warmup=1)
+    assert ms >= 40, ms

@@ -15,7 +15,7 @@ import pytest
 import torch
 from scipy.optimize import linear_sum_assignment
 
-from torch_parity import load, random_variables, t
+from torch_parity import load, random_variables, rounding_keep_masks, t
 
 from eprecon_tpu.models import dense3d as jd
 from eprecon_tpu.models import gru_fusion as jg
@@ -198,34 +198,11 @@ def test_fuse_target_window_two_fragments():
     np.testing.assert_array_equal(tt.occ.numpy(), np.asarray(jt.occ))
 
 
-ROUNDING_MARGIN = 1e-4  # px from a half-integer, in float64
-
-
-def _on_rounding_boundary(d, dim, voxel_size):
-    """[dim] bool: voxels whose pixel coordinate lies within ROUNDING_MARGIN
-    of a half-integer in some view, in float64. The fusion rounds that
-    coordinate to the nearest depth pixel in f32, where XLA-CPU and torch
-    may order the 3x3 product world @ R.T differently and so land on either
-    side (ROADMAP.md section 3, geometry on the boundary): such a voxel
-    reads a neighbouring depth pixel on one side only."""
-    ijk = np.stack(np.meshgrid(*[np.arange(n) for n in dim], indexing="ij"), -1)
-    world = d["vol_origin_partial"].astype(np.float64) + voxel_size * ijk
-    near = np.zeros(dim, bool)
-    for pose, k in zip(d["poses"].astype(np.float64),
-                       d["intrinsics"].astype(np.float64)):
-        w2c = np.linalg.inv(pose)
-        cam = world @ w2c[:3, :3].T + w2c[:3, 3]
-        for axis, f, c in ((0, k[0, 0], k[0, 2]), (1, k[1, 1], k[1, 2])):
-            pix = cam[..., axis] * f / cam[..., 2] + c
-            near |= np.abs(pix - np.floor(pix) - 0.5) < ROUNDING_MARGIN
-    return near
-
-
 def test_synthetic_fragment_gt_matches_jax():
     """The port's GT (plain-torch TSDF fusion, analytic labels) against the
     JAX package's at a tiny size: tsdf 1e-5; occupancy and labels exact,
     except at the voxels whose projection lies on a pixel-rounding boundary
-    (`_on_rounding_boundary`): the cameras' principal point sits at a
+    (`torch_parity.rounding_keep_masks`): the cameras' principal point sits at a
     half-integer, so a voxel on a camera's optical plane rounds to either
     neighbour depending on the host's f32 arithmetic. Those are under 1% of
     all levels' voxels (0.3% here) and of each of levels 0 and 1; at the
@@ -237,24 +214,16 @@ def test_synthetic_fragment_gt_matches_jax():
     kw = dict(n_views=3, image_hw=(48, 64), n_vox=(32, 32, 32),
               voxel_size=0.12, seed=0, start_angle=0.2)
     want, got = jsyn.make_fragment(**kw), tsyn.make_fragment(**kw)
-    exempt, total = 0, 0
-    for lvl in range(3):
-        dim = got["tsdf_levels"][lvl].shape
-        keep = ~_on_rounding_boundary(got, dim, 0.12 * 2 ** lvl)
-        if lvl < 2:
-            assert keep.mean() >= 0.99, (lvl, int((~keep).sum()))
-        else:
-            columns = {(x, y) for x, y, _ in np.argwhere(~keep)}
-            assert len(columns) <= 1, (lvl, columns)
-        exempt, total = exempt + int((~keep).sum()), total + keep.size
+    keeps = rounding_keep_masks(got["vol_origin_partial"], got["poses"],
+                                got["intrinsics"],
+                                [x.shape for x in got["tsdf_levels"]], 0.12)
+    for lvl, keep in enumerate(keeps):
         np.testing.assert_allclose(got["tsdf_levels"][lvl][keep],
                                    np.asarray(want["tsdf_levels"][lvl])[keep],
                                    atol=1e-5, rtol=0, err_msg=f"tsdf {lvl}")
         np.testing.assert_array_equal(got["occ_levels"][lvl][keep],
                                       np.asarray(want["occ_levels"][lvl])[keep])
-        if lvl == 0:
-            keep0 = keep
-    assert exempt <= 0.01 * total, exempt
+    keep0 = keeps[0]
     assert got["occ_levels"][0].sum() > 500
     for k in ("semantic", "instance"):
         np.testing.assert_array_equal(got[k][keep0], np.asarray(want[k])[keep0],

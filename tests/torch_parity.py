@@ -4,6 +4,7 @@ A flax module is initialised, its variables are carried into the port's
 module by eprecon_tpu_torch.convert, and both run on the same numpy
 inputs made from a seed.
 """
+import contextlib
 import dataclasses
 
 import jax
@@ -91,3 +92,95 @@ def random_variables(flax_module, *args, seed=0):
         return x.astype(np.float32)
 
     return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+ROUNDING_MARGIN = 1e-4  # px from a half-integer, in float64
+
+
+def on_rounding_boundary(origin, poses, intrinsics, dim, voxel_size):
+    """[dim] bool: voxels whose pixel coordinate lies within ROUNDING_MARGIN
+    of a half-integer in some view, in float64. TSDF fusion rounds that
+    coordinate to the nearest depth pixel in f32, where XLA-CPU and torch
+    may order the 3x3 product world @ R.T differently and so land on either
+    side (ROADMAP.md section 3, geometry on the boundary): such a voxel
+    reads a neighbouring depth pixel on one side only."""
+    ijk = np.stack(np.meshgrid(*[np.arange(n) for n in dim], indexing="ij"), -1)
+    world = np.asarray(origin, np.float64) + voxel_size * ijk
+    near = np.zeros(dim, bool)
+    for pose, k in zip(np.asarray(poses, np.float64),
+                       np.asarray(intrinsics, np.float64)):
+        w2c = np.linalg.inv(pose)
+        cam = world @ w2c[:3, :3].T + w2c[:3, 3]
+        for axis, f, c in ((0, k[0, 0], k[0, 2]), (1, k[1, 1], k[1, 2])):
+            pix = cam[..., axis] * f / cam[..., 2] + c
+            near |= np.abs(pix - np.floor(pix) - 0.5) < ROUNDING_MARGIN
+    return near
+
+
+def assert_exemption_caps(exempt):
+    """Caps on the voxels a GT comparison exempts, per pyramid level
+    (finest first): under 1% of all levels' voxels and of each finer
+    level; at most one voxel column at the coarsest."""
+    n_exempt, total = 0, 0
+    for lvl, mask in enumerate(exempt):
+        if lvl < len(exempt) - 1:
+            assert mask.mean() <= 0.01, (lvl, int(mask.sum()))
+        else:
+            columns = {(x, y) for x, y, _ in np.argwhere(mask)}
+            assert len(columns) <= 1, (lvl, columns)
+        n_exempt, total = n_exempt + int(mask.sum()), total + mask.size
+    assert n_exempt <= 0.01 * total, n_exempt
+
+
+def rounding_boundary_levels(origin, poses, intrinsics, dims, voxel_size):
+    """`on_rounding_boundary` per pyramid level (finest first, voxel size
+    doubling)."""
+    return [on_rounding_boundary(origin, poses, intrinsics, tuple(dim),
+                                 voxel_size * 2 ** lvl)
+            for lvl, dim in enumerate(dims)]
+
+
+def rounding_keep_masks(origin, poses, intrinsics, dims, voxel_size):
+    """Per pyramid level, the voxels a GT comparison holds exactly: all but
+    those on a rounding boundary, under `assert_exemption_caps`."""
+    near = rounding_boundary_levels(origin, poses, intrinsics, dims,
+                                    voxel_size)
+    assert_exemption_caps(near)
+    return [~m for m in near]
+
+
+def write_scannet_fixture(root):
+    """The JAX tools' on-disk ScanNet-layout tree under `root`
+    (tests/test_scannet_disk.py's fixture): 2 scenes of 20 frames at
+    120x160 (4 fragments of 9 keyframes per split), GT volumes and label
+    volumes at 0.24 m under root/all_tsdf_9, and scans_test linked to
+    scans."""
+    import os
+
+    from eprecon_tpu.tools.generate_gt import generate_all
+    from eprecon_tpu.tools.make_synthetic_scannet import write_scene
+
+    scans = os.path.join(root, "scans")
+    labels = os.path.join(root, "labels")
+    for s in range(2):
+        write_scene(scans, labels, f"scene{s:04d}_00", seed=s, n_frames=20,
+                    image_hw=(120, 160))
+    os.symlink(scans, os.path.join(root, "scans_test"))
+    generate_all(scans, save_name="all_tsdf_9", voxel_size=0.24, n_views=9,
+                 label_path=labels)
+    return root
+
+
+
+@contextlib.contextmanager
+def one_torch_thread():
+    """Run torch's CPU ops on one thread for the block. The suite runs
+    several test processes side by side; torch's default of one thread
+    per core made a micro-config training step burn 5.8 CPU-seconds for
+    0.76 s of wall time (0.87 on one thread), starving the others."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
