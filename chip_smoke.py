@@ -42,23 +42,33 @@ Phases (any failure exits non-zero before the result line):
      4 backward kernel launches per step; the maps finite and growing.
      Prints step ms (step 0 and the median of steps 3-6) and peak GiB;
   6. the CLI (eprecon_tpu_torch.main.main, in this process) at full width
-     over a ScanNet-layout tree in a temporary directory: 2 scenes of 3
-     fragments of 9 views of the port's synthetic scenes, color at
-     ScanNet's 1296x968 and depth at 640x480 (rendered once on a thread
-     pool: the tree holds no image files, and a dataset registered here
-     serves the frames through the port's ScanNetDataset, whose readers
-     alone it replaces), full-scene GT fused on the card. config/train.yaml
-     with the training phase's reductions: one epoch (6 micro-steps), a
-     resumed second epoch, then config/test.yaml from the last checkpoint,
-     scoring both scenes against the tree's GT. Fails unless every
-     training step launched 4 forward and 4 backward kernels and every test
-     fragment 4 forward, every GT fusion of the data pipeline ran on
-     cuda, the resume starts at epoch 1 step 6 and ends at epoch 2 step 12
-     with parameters moved, metrics.jsonl holds one record per step, the
-     losses are finite and both scenes are saved with a finite TSDF and
-     scored. Prints the loop's step ms and sample ms per step, host ms per
-     sample by stage, the test's fragment ms, keyframes/s and p50, the
-     scores (F-score, PQ) and the peak memory;
+     over a ScanNet-layout tree in a temporary directory that the port
+     writes itself: tools/make_synthetic_scannet.write_scene, 2 textured
+     scenes of 27 frames (every one a keyframe: 3 fragments of 9 views),
+     color 1296x968 jpg and depth 640x480 png through the native library
+     (csrc/fragment_loader.cpp: libjpeg, or nvJPEG on the card where the
+     host has no libjpeg, and zlib), then tools/generate_gt.generate_all on
+     the card at 4 cm. Loader checks: decoded depth equals the written
+     u16 / 1000; decoded color, padded and resized, within 2 grey levels
+     (mean) of its render; every fragment of the GT pkls names 9 frames on
+     disk; the prefetcher's first sample equals dataset[0] (images bit for
+     bit, cameras and GT exactly). Then config/train.yaml with the training
+     phase's reductions: one epoch through the decode-ahead loader
+     (train.n_workers 8), a resumed second epoch reading synchronously
+     (train.n_workers 0), then config/test.yaml from the last checkpoint
+     through the loader (test.n_workers 4) with the depth protocol
+     (test.eval_depth_frames 9). Fails unless every training step launched
+     4 forward and 4 backward kernels and every test fragment 4 forward,
+     the prefetcher served the first epoch and the test, every GT fusion
+     ran on cuda, the resume starts at epoch 1 step 6 and ends at epoch 2
+     step 12 with parameters moved, metrics.jsonl holds one record per
+     step, the losses are finite, both scenes are saved with a finite
+     TSDF, scored, and have finite depth metrics. Prints [loader] (the
+     libraries found, the route, decode ms per fragment, prefetch depth),
+     [gt] (seconds per scene, voxels), the loop's step and sample ms with
+     and without the prefetcher, host ms per sample by stage, the test's
+     fragment ms, keyframes/s and p50, [depth-eval] (render ms per frame,
+     trim seconds, AbsRel / RMSE / fscore per scene) and the peak memory;
   7. reference checks at tiny size: the same forward, and one training
      micro-step, on CUDA and on the CPU (the CPU port is held against the
      JAX package by tests/test_torch_forward.py and test_torch_train.py).
@@ -70,6 +80,7 @@ Full results also go to chip_smoke.json in the output directory beside
 the script.
 """
 import ast
+import contextlib
 import dataclasses
 import json
 import re
@@ -469,194 +480,178 @@ def train_reference_phase(card):
 
 # --------------------------------------------------------------------------
 # cli phase: the CLI (eprecon_tpu_torch.main) over a ScanNet-layout tree
+# that the port writes, with GT that the port generates
 # --------------------------------------------------------------------------
 
-CLI_DATASET = "chip_smoke_synthetic"
 CLI_SCENES, CLI_FRAGMENTS, CLI_VIEWS = 2, 3, 9
+# an orbit of 27 frames 0.51 m apart: every frame is a keyframe (> 0.1 m)
+CLI_FRAMES = CLI_FRAGMENTS * CLI_VIEWS
 CLI_COLOR_HW, CLI_DEPTH_HW = (968, 1296), (480, 640)   # ScanNet's raw sizes
 CLI_TRAIN_STEPS = CLI_SCENES * CLI_FRAGMENTS            # per epoch
 CLI_REDUCED = ["train.accumulation_steps", "2", "model.thresholds",
                "[-100,-100,-100]", "model.occ_init_threshold", "0"]
+CLI_TRAIN_WORKERS, CLI_TEST_WORKERS, CLI_DEPTH_FRAMES = 8, 4, 9
+COLOR_MEAN_TOL = 2.0   # grey levels: JPEG at quality 95 against the render
 
 
-def scannet_intrinsics():
-    """(depth, color) intrinsics with ScanNet's split: after the 968 -> 972
-    pad and the resize to 640x480, the color intrinsics land on the depth
-    intrinsics, as on real ScanNet."""
+def write_tree(root: Path, card):
+    """The port writes the tree (tools/make_synthetic_scannet.write_scene:
+    textured scenes, color 1296x968 jpg, depth 640x480 png, poses,
+    intrinsics, label exports) and generates its GT on the card
+    (tools/generate_gt.generate_all at 4 cm). Returns timings and GT
+    facts."""
     import numpy as np
+    from eprecon_tpu_torch.ops import tsdf_fusion
+    from eprecon_tpu_torch.tools.generate_gt import generate_all
+    from eprecon_tpu_torch.tools.make_synthetic_scannet import write_scene
 
-    (dh, dw), (ch, cw) = CLI_DEPTH_HW, CLI_COLOR_HW
-    f = 0.9 * dw / 2
-    depth = np.array([[f, 0, dw / 2 - 0.5], [0, f, dh / 2 - 0.5], [0, 0, 1]])
-    color = depth.copy()
-    color[0] *= cw / dw
-    color[1] *= (ch + 4) / dh
-    color[1, 2] -= 2
-    return depth, color
+    scans, labels = root / "scans", root / "labels"
+    t0 = time.perf_counter()
+    for s in range(CLI_SCENES):
+        write_scene(str(scans), str(labels), f"scene{s:04d}_00", seed=s,
+                    n_frames=CLI_FRAMES, image_hw=CLI_DEPTH_HW,
+                    color_hw=CLI_COLOR_HW)
+    write_s = time.perf_counter() - t0
+    (root / "scans_test").symlink_to(scans)
 
+    devices = []
+    make_volume = tsdf_fusion.make_volume
 
-class SyntheticFrames:
-    """Frames of the port's synthetic scenes (data/synthetic.py): an orbit
-    of CLI_FRAGMENTS * CLI_VIEWS poses per scene; color (BGR, integer
-    levels) at 1296x968 and depth at 640x480, rendered once and cached."""
+    def recorded(*a, **kw):
+        vol = make_volume(*a, **kw)
+        devices.append(vol.tsdf.device.type)
+        return vol
 
-    def __init__(self):
-        import numpy as np
-        from eprecon_tpu_torch.data.synthetic import make_scene, orbit_poses
-
-        n = CLI_FRAGMENTS * CLI_VIEWS
-        self.scenes = {f"scene{s:04d}_00": (make_scene(s), orbit_poses(
-            n, start=0.5 * s, sweep=2 * np.pi * (n - 1) / n))
-                       for s in range(CLI_SCENES)}
-        self.depth_intr, self.color_intr = scannet_intrinsics()
-        self.cache = {}
-
-    def _render(self, key):
-        import numpy as np
-        from eprecon_tpu_torch.data.synthetic import render_view
-
-        scene, kind, i = key
-        sc, poses = self.scenes[scene]
-        if kind == "color":
-            rgb = render_view(sc, self.color_intr, poses[i], CLI_COLOR_HW)[1]
-            return np.clip(np.round(rgb), 0, 255).astype(np.float32)
-        return render_view(sc, self.depth_intr, poses[i], CLI_DEPTH_HW)[0]
-
-    def get(self, scene: str, kind: str, i: int):
-        key = (scene, kind, i)
-        if key not in self.cache:
-            self.cache[key] = self._render(key)
-        return self.cache[key]
-
-    def render_all(self, threads: int = 8):
-        """Fill the cache on a thread pool (numpy releases the GIL)."""
-        from concurrent.futures import ThreadPoolExecutor
-
-        keys = [(s, k, i) for s in self.scenes for k in ("depth", "color")
-                for i in range(CLI_FRAGMENTS * CLI_VIEWS)]
-        with ThreadPoolExecutor(threads) as ex:
-            for key, img in zip(keys, ex.map(self._render, keys)):
-                self.cache[key] = img
+    tee = _Tee(sys.stdout)
+    tsdf_fusion.make_volume = recorded
+    try:
+        with contextlib.redirect_stdout(tee):
+            gt = Path(generate_all(str(scans), "all_tsdf_9", 0.04, CLI_VIEWS,
+                                   label_path=str(labels), device="cuda"))
+    finally:
+        tsdf_fusion.make_volume = make_volume
+    if set(devices) != {"cuda"}:
+        raise AssertionError(f"GT fusion ran on {sorted(set(devices))}")
+    per_scene = {}
+    for line in tee.lines:
+        scene = line.split(":")[0]
+        with np.load(gt / scene / "full_tsdf_layer0.npz") as z:
+            shape = z["arr_0"].shape
+        per_scene[scene] = dict(
+            seconds=float(re.search(r"in ([0-9.]+) s$", line).group(1)),
+            voxels=int(np.prod(shape)), shape=list(shape))
+    print(f"[gt] generate_all on cuda at 4 cm, {CLI_FRAMES} frames per scene: "
+          + "; ".join(f"{n} {x['seconds']:.2f} s, {x['voxels']} voxels "
+                      f"{x['shape']}" for n, x in per_scene.items())
+          + f" | {card}", flush=True)
+    return dict(write_s=write_s, gt=per_scene, gt_devices=sorted(set(devices)))
 
 
-def register_synthetic_dataset(frames: SyntheticFrames):
-    """Register CLI_DATASET: the port's ScanNetDataset with only its image
-    readers replaced (the tree holds no image files, and the script needs
-    no image decoder): they serve the rendered frames. Everything from
-    _build_sample on is the package's code."""
-    from eprecon_tpu_torch.data.scannet import ScanNetDataset, register_dataset
-
-    @register_dataset(CLI_DATASET)
-    class SyntheticScanNet(ScanNetDataset):
-        def _frame(self, path, kind):
-            p = Path(path)
-            return frames.get(p.parents[1].name, kind, int(p.stem))
-
-        def _read_img(self, path):
-            return self._frame(path, "color").copy()
-
-        def _read_depth(self, path):
-            d = self._frame(path, "depth").copy()
-            d[d > 3.0] = 0.0  # the ScanNet reader's depth clamp
-            return d
-
-        def _color_size(self, scene, vid):
-            return CLI_COLOR_HW
-
-    return SyntheticScanNet
-
-
-def write_cli_tree(root: Path, frames: SyntheticFrames, device: str = "cuda"):
-    """The ScanNet layout without image files: intrinsics and pose .txt,
-    full-scene GT at three levels fused on the card with the port's
-    ops/tsdf_fusion (the GT generator's layout: full_tsdf_layer*.npz,
-    tsdf_info.npz, label volumes), fragments_{train,test}.pkl."""
+def loader_checks(root: Path, common, card):
+    """The tree against its sources and the decode-ahead path against the
+    synchronous one: decoded depth equals the written u16 / 1000; decoded
+    color, padded and resized, within COLOR_MEAN_TOL of the render resized
+    the same way; every fragment of the GT pkls names 9 frames on disk;
+    the prefetcher's first sample equals dataset[0] (images bit for bit,
+    cameras, projections and GT exactly); decode ms per fragment."""
     import pickle
 
     import numpy as np
-    import torch
-    from eprecon_tpu_torch.data.synthetic import voxel_labels
-    from eprecon_tpu_torch.data.transforms import get_view_frustum
-    from eprecon_tpu_torch.ops import tsdf_fusion
-
-    metas = []
-    for name, (scene, poses) in frames.scenes.items():
-        src = root / "scans" / name
-        for sub in ("intrinsic", "pose"):
-            (src / sub).mkdir(parents=True, exist_ok=True)
-        for fname, k in (("intrinsic_color.txt", frames.color_intr),
-                         ("intrinsic_depth.txt", frames.depth_intr)):
-            k4 = np.eye(4)
-            k4[:3, :3] = k
-            np.savetxt(src / "intrinsic" / fname, k4)
-        for i, pose in enumerate(poses):
-            np.savetxt(src / "pose" / f"{i}.txt", pose)
-        depths = np.stack([frames.get(name, "depth", i) for i in range(len(poses))])
-        depths[depths > 3.0] = 0.0
-        pts = np.concatenate([get_view_frustum(3.0, CLI_DEPTH_HW, frames.depth_intr,
-                                               p) for p in poses], axis=1)
-        lo, hi = pts.min(1), pts.max(1)
-        origin = lo.astype(np.float32)
-        gt = root / "all_tsdf_9" / name
-        gt.mkdir(parents=True)
-        dev = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
-        k = np.repeat(frames.depth_intr[None], len(poses), 0)
-        for lvl in range(3):
-            vsz = 0.04 * 2 ** lvl
-            dim = tuple(int(np.ceil((hi[i] - lo[i]) / vsz)) for i in range(3))
-            t, _ = tsdf_fusion.fuse_frames(dev(depths), dev(k), dev(poses),
-                                           dev(origin), dim, vsz, margin=3)
-            t = t.cpu().numpy()
-            np.savez_compressed(gt / f"full_tsdf_layer{lvl}.npz", t)
-            if lvl == 0:
-                occ = np.abs(t) < 0.999
-                sem, ins = voxel_labels(scene, origin, vsz, dim)
-                for label, vol in (("semantic", sem), ("instance", ins)):
-                    np.savez_compressed(gt / f"full_{label}_layer_interpolate0.npz",
-                                        np.where(occ, vol, 0).astype(np.int32))
-        np.savez(gt / "tsdf_info.npz", vol_origin=origin, voxel_size=np.float32(0.04))
-        metas += [dict(scene=name, fragment_id=f, vol_origin=origin,
-                       image_ids=list(range(f * CLI_VIEWS, (f + 1) * CLI_VIEWS)))
-                  for f in range(CLI_FRAGMENTS)]
-    for split in ("train", "test"):
-        with open(root / "all_tsdf_9" / f"fragments_{split}.pkl", "wb") as f:
-            pickle.dump(metas, f)
-    (root / "scans_test").symlink_to(root / "scans")
-
-
-class _Tee:
-    """stdout that is also kept, line by line."""
-
-    def __init__(self, out):
-        self.out, self.lines, self._buf = out, [], ""
-
-    def write(self, text):
-        self.out.write(text)
-        self._buf += text
-        *done, self._buf = self._buf.split("\n")
-        self.lines += done
-        return len(text)
-
-    def flush(self):
-        self.out.flush()
-
-
-def _run_cli(args):
-    """eprecon_tpu_torch.main.main(args) in this process; returns (its
-    result, the lines it printed)."""
-    import contextlib
-
     from eprecon_tpu_torch import main as cli
+    from eprecon_tpu_torch.config import load_config, parse_cli_overrides
+    from eprecon_tpu_torch.data import native_loader as nl
+    from eprecon_tpu_torch.data.prefetch import FragmentPrefetcher
+    from eprecon_tpu_torch.data.synthetic import make_scene, orbit_poses, render_view
+    from eprecon_tpu_torch.data.transforms import pad_scannet, resize_bilinear
 
-    tee = _Tee(sys.stdout)
-    with contextlib.redirect_stdout(tee):
-        out = cli.main(args)
-    return out, tee.lines
+    found = nl.probe_libraries()
+    scans, gt = root / "scans", root / "all_tsdf_9"
+    for split in ("train", "val", "test"):
+        with open(gt / f"fragments_{split}.pkl", "rb") as f:
+            metas = pickle.load(f)
+        if len(metas) != CLI_SCENES * CLI_FRAGMENTS:
+            raise AssertionError(f"fragments_{split}.pkl: {len(metas)} fragments")
+        for m in metas:
+            files = [scans / m["scene"] / sub / f"{v}.{ext}" for v in m["image_ids"]
+                     for sub, ext in (("color", "jpg"), ("depth", "png"),
+                                      ("pose", "txt"))]
+            if len(m["image_ids"]) != CLI_VIEWS or not all(f.is_file() for f in files):
+                raise AssertionError(f"{split} fragment {m['scene']} "
+                                     f"{m['fragment_id']}: {m['image_ids']}")
+
+    # frame 0 of scene 0 against its render
+    src = scans / "scene0000_00"
+    k_color = np.loadtxt(src / "intrinsic" / "intrinsic_color.txt")[:3, :3].astype(np.float32)
+    k_depth = np.loadtxt(src / "intrinsic" / "intrinsic_depth.txt")[:3, :3].astype(np.float32)
+    pose = orbit_poses(CLI_FRAMES, sweep=2 * np.pi * (CLI_FRAMES - 1) / CLI_FRAMES)[0]
+    scene = make_scene(0, textured=True)
+    want_d = (render_view(scene, k_depth, pose, CLI_DEPTH_HW)[0] * 1000.0).astype(np.uint16)
+    want_d = want_d.astype(np.float32) / 1000.0
+    want_d[want_d > 3.0] = 0.0
+    got_d = nl.decode_png_depth(str(src / "depth" / "0.png"), 3.0)
+    if not np.array_equal(got_d, want_d):
+        raise AssertionError(f"decoded depth differs from the written one by "
+                             f"{np.abs(got_d - want_d).max()}")
+    small = lambda im: resize_bilinear(pad_scannet(im, np.eye(3))[0], (640, 480))
+    render = render_view(scene, k_color, pose, CLI_COLOR_HW)[1].astype(np.uint8)
+    color_err = float(np.abs(small(nl.decode_jpeg(str(src / "color" / "0.jpg")))
+                             - small(render.astype(np.float32))).mean())
+    if not color_err <= COLOR_MEAN_TOL:
+        raise AssertionError(f"decoded color: mean error {color_err} grey levels")
+
+    # decode per fragment: the threaded loader and the synchronous readers
+    cfg = load_config(str(REPO / "config/train.yaml"), parse_cli_overrides(common))
+    ds = cli.build_dataset(cfg, "train")
+    imgs, depths = ds.image_paths(0)
+    native_ms, sync_ms = [], []
+    with nl.NativeFragmentLoader(CLI_TRAIN_WORKERS) as loader:
+        for _ in range(4):
+            t0 = time.perf_counter()
+            loader.fetch(loader.submit(imgs, depths), len(imgs))
+            native_ms.append(1e3 * (time.perf_counter() - t0))
+    for _ in range(2):
+        t0 = time.perf_counter()
+        for c, d in zip(imgs, depths):
+            ds._read_img(c)
+            ds._read_depth(d)
+        sync_ms.append(1e3 * (time.perf_counter() - t0))
+
+    # the prefetcher's sample against the synchronous one
+    want = ds[0]
+    pf = FragmentPrefetcher(ds, n_threads=CLI_TRAIN_WORKERS)
+    try:
+        got = next(pf.iterate([0]))
+    finally:
+        pf.close()
+    if set(got) != set(want):
+        raise AssertionError(f"prefetched keys {sorted(set(got) ^ set(want))}")
+    for key, w in want.items():
+        g = got[key]
+        same = (all(np.array_equal(a, b) for a, b in zip(g, w)) and len(g) == len(w)
+                if isinstance(w, list) else np.array_equal(g, w)
+                if isinstance(w, np.ndarray) else g == w)
+        if not same:
+            raise AssertionError(f"prefetched sample differs from dataset[0] at {key}")
+    res = dict(libraries={k: v is not None for k, v in found.items()},
+               route=nl.route(), color_mean_err=color_err,
+               decode_fragment_ms=native_ms, sync_read_fragment_ms=sync_ms,
+               prefetch_depth=pf.depth, threads=CLI_TRAIN_WORKERS)
+    print(f"[loader] libraries found: "
+          + ", ".join(f"{k} {'yes' if v else 'no'}" for k, v in res["libraries"].items())
+          + f"; route {res['route']}; decode of a fragment (9 views, color "
+          f"1296x968 -> 640x480, depth 640x480) by the loader's "
+          f"{CLI_TRAIN_WORKERS} threads {[round(x, 1) for x in native_ms]} ms, "
+          f"by the synchronous readers (full size, no resize) "
+          f"{[round(x, 1) for x in sync_ms]} ms; prefetch depth {pf.depth}; "
+          f"decoded color {color_err:.3f} grey levels from its render; "
+          f"prefetched sample == dataset[0] | {card}", flush=True)
+    return res
 
 
-def time_sample_stages(dataset, indices):
+def time_sample_stages(dataset, indices, prefetcher=None):
     """Host ms per sample, by stage, with the card synchronised at each
-    stage's end: frame reads, resize, the world-frame transform (its GT
+    stage's end: frame reads (decode; with a prefetcher the wait for its
+    fetch and the camera reads), resize, the world-frame transform (its GT
     fusion on the card apart), projections, and the whole sample."""
     import numpy as np
     import torch
@@ -679,12 +674,18 @@ def time_sample_stages(dataset, indices):
     for r in ("_read_img", "_read_depth", "_read_cam"):
         setattr(dataset, r, timed("read", getattr(dataset, r)))
     tsdf_fusion.fuse_frames = timed("gt_fusion", tsdf_fusion.fuse_frames)
+    if prefetcher is not None:
+        prefetcher.loader.fetch = timed("fetch_wait", prefetcher.loader.fetch)
+        samples = prefetcher.iterate(indices)
+    else:
+        samples = (dataset[i] for i in indices)
     try:
         per = []
-        for i in indices:
+        while True:
             acc.clear()
             t0 = time.perf_counter()
-            dataset[i]
+            if next(samples, None) is None:
+                break
             torch.cuda.synchronize()
             per.append(dict(acc, total=1e3 * (time.perf_counter() - t0)))
     finally:
@@ -694,12 +695,40 @@ def time_sample_stages(dataset, indices):
     return {k: float(np.median([p.get(k, 0.0) for p in per])) for k in per[0]}
 
 
+class _Tee:
+    """stdout that is also kept, line by line."""
+
+    def __init__(self, out):
+        self.out, self.lines, self._buf = out, [], ""
+
+    def write(self, text):
+        self.out.write(text)
+        self._buf += text
+        *done, self._buf = self._buf.split("\n")
+        self.lines += done
+        return len(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _run_cli(args):
+    """eprecon_tpu_torch.main.main(args) in this process; returns (its
+    result, the lines it printed)."""
+    from eprecon_tpu_torch import main as cli
+
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        out = cli.main(args)
+    return out, tee.lines
+
+
 def cli_phase(card):
-    """Train, resume and test through the CLI at full width over a
-    ScanNet-layout tree of the port's synthetic scenes; the GT fusion of
-    the data pipeline runs on the card."""
+    """Write a ScanNet-layout tree and its GT with the port, check the
+    loader on it, then train (decode-ahead), resume (synchronous reads)
+    and test (decode-ahead, depth protocol) through the CLI at full
+    width."""
     import gc
-    import pickle
     import shutil
     import tempfile
 
@@ -707,9 +736,11 @@ def cli_phase(card):
     import torch
     from eprecon_tpu_torch import main as cli
     from eprecon_tpu_torch.config import load_config, parse_cli_overrides
+    from eprecon_tpu_torch.data import prefetch
     from eprecon_tpu_torch.inference.pipeline import StreamingReconstructor
     from eprecon_tpu_torch.ops import back_project as bp
     from eprecon_tpu_torch.ops import tsdf_fusion
+    from eprecon_tpu_torch.tools import evaluation
     from eprecon_tpu_torch.train.state import Trainer
 
     gc.collect()
@@ -718,29 +749,25 @@ def cli_phase(card):
     t_phase = time.perf_counter()
     root = Path(tempfile.mkdtemp(prefix="eprecon_cli_"))
     try:
-        frames = SyntheticFrames()
-        t0 = time.perf_counter()
-        frames.render_all()
-        render_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        write_cli_tree(root, frames)
-        tree_s = time.perf_counter() - t0
-        register_synthetic_dataset(frames)
+        tree = write_tree(root, card)
         logdir = root / "run"
         common = ["train.path", str(root), "test.path", str(root), "logdir",
-                  str(logdir), "dataset", CLI_DATASET, "summary_freq", "1",
-                  *CLI_REDUCED]
+                  str(logdir), "summary_freq", "1", *CLI_REDUCED]
         print(f"[cli] tree of {CLI_SCENES} scenes x {CLI_FRAGMENTS} fragments x "
-              f"{CLI_VIEWS} views (color {CLI_COLOR_HW[1]}x{CLI_COLOR_HW[0]}, "
-              f"depth {CLI_DEPTH_HW[1]}x{CLI_DEPTH_HW[0]}): frames rendered in "
-              f"{render_s:.1f} s, GT written in {tree_s:.1f} s; reduced from "
-              f"config/*.yaml: {CLI_REDUCED} | {card}", flush=True)
+              f"{CLI_VIEWS} views (color {CLI_COLOR_HW[1]}x{CLI_COLOR_HW[0]} jpg, "
+              f"depth {CLI_DEPTH_HW[1]}x{CLI_DEPTH_HW[0]} png) written by the "
+              f"port in {tree['write_s']:.1f} s, GT generated on the card; "
+              f"reduced from config/*.yaml: {CLI_REDUCED} | {card}", flush=True)
+        loader = loader_checks(root, common, card)
 
         # instrumentation: launches per training step and per test fragment,
-        # the device of every GT fusion of the data pipeline
-        per_step, per_frag, fusion_devices = [], [], []
+        # the device of every GT fusion of the data pipeline, the samples
+        # that came through the prefetcher, the depth protocol's times
+        per_step, per_frag, fusion_devices, prefetched = [], [], [], []
+        render_ms, trim_s = [], []
         step, process = Trainer.step, StreamingReconstructor.process_fragment
-        fuse = tsdf_fusion.fuse_frames
+        fuse, iterate = tsdf_fusion.fuse_frames, prefetch.FragmentPrefetcher.iterate
+        render, trim = evaluation.render_tsdf_depth, evaluation.trim_tsdf
 
         def counted(fn, out_list):
             def run(*a, **kw):
@@ -751,33 +778,61 @@ def cli_phase(card):
                 return out
             return run
 
+        def timed(fn, out_list, scale):
+            def run(*a, **kw):
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                out_list.append(scale * (time.perf_counter() - t0))
+                return out
+            return run
+
         def fuse_recorded(depths, *a, **kw):
             fusion_devices.append(depths.device.type)
             return fuse(depths, *a, **kw)
 
+        def iterate_recorded(self, indices):
+            for sample in iterate(self, indices):
+                prefetched.append(sample["fragment"])
+                yield sample
+
         Trainer.step = counted(step, per_step)
         StreamingReconstructor.process_fragment = counted(process, per_frag)
         tsdf_fusion.fuse_frames = fuse_recorded
+        prefetch.FragmentPrefetcher.iterate = iterate_recorded
+        evaluation.render_tsdf_depth = timed(render, render_ms, 1e3)
+        evaluation.trim_tsdf = timed(trim, trim_s, 1.0)
         bp.launch_counts.clear()
         bp.backward_launch_counts.clear()
         try:
             t0 = time.perf_counter()
             tr1, log1 = _run_cli(["--cfg", "config/train.yaml", *common,
-                                  "train.epochs", "1"])
+                                  "train.epochs", "1",
+                                  "train.n_workers", str(CLI_TRAIN_WORKERS)])
             train1_s = time.perf_counter() - t0
+            n_prefetched_train = len(prefetched)
             t0 = time.perf_counter()
             tr2, log2 = _run_cli(["--cfg", "config/train.yaml", *common,
-                                  "train.epochs", "2", "resume", "true"])
+                                  "train.epochs", "2", "resume", "true",
+                                  "train.n_workers", "0"])
             train2_s = time.perf_counter() - t0
+            n_prefetched_resume = len(prefetched) - n_prefetched_train
             del tr1, tr2
             gc.collect()
             t0 = time.perf_counter()
             results, log3 = _run_cli(["--cfg", "config/test.yaml", *common,
-                                      "loadckpt", str(logdir / "model_000001")])
+                                      "loadckpt", str(logdir / "model_000001"),
+                                      "test.n_workers", str(CLI_TEST_WORKERS),
+                                      "test.eval_depth_frames",
+                                      str(CLI_DEPTH_FRAMES)])
             test_s = time.perf_counter() - t0
+            n_prefetched_test = (len(prefetched) - n_prefetched_train
+                                 - n_prefetched_resume)
         finally:
             Trainer.step, StreamingReconstructor.process_fragment = step, process
             tsdf_fusion.fuse_frames = fuse
+            prefetch.FragmentPrefetcher.iterate = iterate
+            evaluation.render_tsdf_depth, evaluation.trim_tsdf = render, trim
         launches = dict(bp.launch_counts)
         backward_launches = dict(bp.backward_launch_counts)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -791,6 +846,11 @@ def cli_phase(card):
         if per_frag != [(4, 0)] * n_test:
             raise AssertionError(f"test fragments launched {per_frag}, want "
                                  f"(4, 0) x {n_test}")
+        if (n_prefetched_train, n_prefetched_resume, n_prefetched_test) != (
+                CLI_TRAIN_STEPS, 0, n_test):
+            raise AssertionError(f"samples through the prefetcher: train "
+                                 f"{n_prefetched_train}, resume "
+                                 f"{n_prefetched_resume}, test {n_prefetched_test}")
         if not fusion_devices or set(fusion_devices) != {"cuda"}:
             raise AssertionError(f"GT fusion ran on {sorted(set(fusion_devices))}")
         resumed = [x for x in log2 if x.startswith("resumed from ")]
@@ -823,7 +883,8 @@ def cli_phase(card):
             raise AssertionError(f"eval losses: {eval_line}")
         scenes_dir = logdir / "scenes"
         scores = {}
-        for name in frames.scenes:
+        names = [f"scene{s:04d}_00" for s in range(CLI_SCENES)]
+        for name in names:
             with np.load(scenes_dir / f"{name}.npz") as z:
                 if not (np.isfinite(z["tsdf"]).all() and (np.abs(z["tsdf"]) < 1).any()):
                     raise AssertionError(f"scene {name}: no finite surface")
@@ -831,52 +892,84 @@ def cli_phase(card):
             if not mfile.is_file():
                 raise AssertionError(f"scene {name}: not scored")
             scores[name] = json.loads(mfile.read_text())
-        if sorted(r.name for r in results) != sorted(frames.scenes):
+            depth_keys = ("AbsRel", "RMSE", "fscore")
+            if not all(np.isfinite(scores[name].get(k, np.nan)) for k in depth_keys):
+                raise AssertionError(f"scene {name}: depth metrics "
+                                     f"{ {k: scores[name].get(k) for k in depth_keys} }")
+        if sorted(r.name for r in results) != names:
             raise AssertionError(f"run_test returned {[r.name for r in results]}")
+        if not (len(render_ms) == CLI_SCENES * CLI_DEPTH_FRAMES
+                and len(trim_s) == CLI_SCENES):
+            raise AssertionError(f"depth protocol rendered {len(render_ms)} frames "
+                                 f"and trimmed {len(trim_s)} scenes")
 
         # numbers
         step_ms = [r["step_ms"] for r in records]
         sample_ms = [r["sample_ms"] for r in records]
-        steady = [x for i, x in enumerate(step_ms) if i % CLI_TRAIN_STEPS]
+        after_first = lambda xs, epoch: [x for i, x in enumerate(xs)
+                                         if i % CLI_TRAIN_STEPS
+                                         and i // CLI_TRAIN_STEPS == epoch]
         epochs = [float(re.search(r"\(([0-9.]+)s\)$", x).group(1))
                   for x in log1 + log2 if x.startswith("epoch ")]
         frag_ms = [float(re.search(r": ([0-9.]+) ms", x).group(1))
                    for x in log3 if x.startswith("fragment ")]
         summary = re.search(r"\(([0-9.]+) keyframes/s, p50 fragment ([0-9.]+) ms\)",
-                            log3[-1])
+                            "\n".join(x for x in log3 if "keyframes/s" in x))
         train_ds = cli.build_dataset(load_config(
             str(REPO / "config/train.yaml"), parse_cli_overrides(common)), "train")
         stages = time_sample_stages(train_ds, range(len(train_ds)))
+        pf = prefetch.FragmentPrefetcher(train_ds, n_threads=CLI_TRAIN_WORKERS)
+        try:
+            prefetch_stages = time_sample_stages(train_ds, range(len(train_ds)), pf)
+        finally:
+            pf.close()
         del train_ds, results
         wall = time.perf_counter() - t_phase
+        median = lambda xs: float(np.median(xs))
         res = dict(
             train_step_ms=step_ms, train_sample_ms=sample_ms,
-            train_steady_step_ms=float(np.median(steady)),
-            train_steady_sample_ms=float(np.median(
-                [x for i, x in enumerate(sample_ms) if i % CLI_TRAIN_STEPS])),
+            prefetch_steady_step_ms=median(after_first(step_ms, 0)),
+            prefetch_steady_sample_ms=median(after_first(sample_ms, 0)),
+            sync_steady_step_ms=median(after_first(step_ms, 1)),
+            sync_steady_sample_ms=median(after_first(sample_ms, 1)),
             epoch_s=epochs, test_fragment_ms=frag_ms,
             test_keyframes_per_s=float(summary.group(1)),
             test_p50_fragment_ms=float(summary.group(2)),
-            sample_stage_ms=stages, eval_loss_means=eval_means, scores=scores,
-            peak_gib=peak, wall_s=wall, render_s=render_s, tree_s=tree_s,
+            sample_stage_ms=stages, prefetch_sample_stage_ms=prefetch_stages,
+            eval_loss_means=eval_means, scores=scores,
+            render_ms=render_ms, trim_s=trim_s, loader=loader, tree=tree,
+            peak_gib=peak, wall_s=wall,
             run_s=dict(train=train1_s, resume=train2_s, test=test_s),
             reduced=CLI_REDUCED, color_hw=list(CLI_COLOR_HW))
-        print(f"[cli] train through train_epochs: step ms {[round(x, 1) for x in step_ms]}"
-              f"; steady (median of steps after each epoch's first) "
-              f"{res['train_steady_step_ms']:.1f} ms, of it sample "
-              f"{res['train_steady_sample_ms']:.1f} ms; epochs {epochs} s | {card}",
+        print(f"[cli] train through train_epochs: step ms {[round(x, 1) for x in step_ms]}; "
+              f"steady (median of the steps after the epoch's first): epoch 0 "
+              f"with the prefetcher ({CLI_TRAIN_WORKERS} threads) "
+              f"{res['prefetch_steady_step_ms']:.1f} ms, of it sample "
+              f"{res['prefetch_steady_sample_ms']:.1f} ms; resumed epoch 1 "
+              f"synchronous {res['sync_steady_step_ms']:.1f} ms, of it sample "
+              f"{res['sync_steady_sample_ms']:.1f} ms; epochs {epochs} s | {card}",
               flush=True)
-        print(f"[cli] host ms per sample (median, card synchronised per stage): "
-              f"{ {k: round(v, 1) for k, v in stages.items()} } | {card}", flush=True)
+        print(f"[cli] host ms per sample (median, card synchronised per stage), "
+              f"synchronous: { {k: round(v, 1) for k, v in stages.items()} }; "
+              f"through the prefetcher ({CLI_TRAIN_WORKERS} threads): "
+              f"{ {k: round(v, 1) for k, v in prefetch_stages.items()} } | {card}",
+              flush=True)
         print(f"[cli] test: fragment ms {[round(x, 1) for x in frag_ms]}, "
               f"{res['test_keyframes_per_s']} keyframes/s, p50 "
-              f"{res['test_p50_fragment_ms']} ms; eval losses {eval_means}; "
-              + "; ".join(f"{n} fscore={m.get('fscore', float('nan')):.4f} "
-                          f"PQ={m.get('PQ', float('nan')):.4f}"
+              f"{res['test_p50_fragment_ms']} ms; eval losses {eval_means} | {card}",
+              flush=True)
+        print(f"[depth-eval] {len(render_ms)} frames rendered at "
+              f"{CLI_DEPTH_HW[1]}x{CLI_DEPTH_HW[0]} (192 steps): median "
+              f"{median(render_ms):.1f} ms per frame (first {render_ms[0]:.1f}); "
+              f"trim {[round(x, 2) for x in trim_s]} s per scene; "
+              + "; ".join(f"{n} AbsRel={m['AbsRel']:.4f} RMSE={m['RMSE']:.4f} "
+                          f"fscore={m['fscore']:.4f} PQ={m.get('PQ', float('nan')):.4f}"
                           for n, m in scores.items()) + f" | {card}", flush=True)
         print(f"[cli] peak memory {peak:.2f} GiB; phase wall {wall:.1f} s "
-              f"(render {render_s:.1f}, tree {tree_s:.1f}, train {train1_s:.1f}, "
-              f"resume {train2_s:.1f}, test {test_s:.1f}) | {card}", flush=True)
+              f"(write {tree['write_s']:.1f}, GT "
+              f"{sum(x['seconds'] for x in tree['gt'].values()):.1f}, train "
+              f"{train1_s:.1f}, resume {train2_s:.1f}, test {test_s:.1f}) | {card}",
+              flush=True)
         return res, launches, backward_launches
     finally:
         shutil.rmtree(root, ignore_errors=True)

@@ -11,11 +11,12 @@ ScanNet tree works unchanged:
              intrinsic/intrinsic_color.txt, pose/<id>.txt
   <tsdf_dir>/<scene>/full_tsdf_layer{l}.npz (+ semantic/instance layers)
 
-Images are decoded with cv2 (and their size read with PIL), imported when
-a frame is read: a real ScanNet tree needs them on the host. The readers
-`_read_img`, `_read_depth`, `_read_cam` and `_color_size` are the only
-methods that touch frame files, so a subclass can serve frames from
-elsewhere.
+Frames are decoded by the port's native library (data/native_loader.py:
+libjpeg or nvJPEG, and zlib), the same decoders as the decode-ahead loader,
+and a color frame's size comes from its JPEG header: the data path needs
+neither cv2 nor PIL. The readers `_read_img`, `_read_depth`, `_read_cam`
+and `_color_size` are the only methods that touch frame files, so a
+subclass can serve frames from elsewhere.
 """
 from __future__ import annotations
 
@@ -25,7 +26,10 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from eprecon_tpu_torch.data import native_loader
+
 DATASET_REGISTRY = {}
+MAX_DEPTH = 3.0   # meters; farther depth is zeroed
 
 
 def register_dataset(name):
@@ -71,17 +75,12 @@ class ScanNetDataset:
         return len(self.metas)
 
     def _read_img(self, path):
-        import cv2
-
-        img = cv2.imread(path)  # BGR, matching the reference's pixel means
-        return img.astype(np.float32)
+        # BGR f32, matching the reference's pixel means
+        return native_loader.decode_jpeg(path)
 
     def _read_depth(self, path):
-        import cv2
-
-        d = cv2.imread(path, cv2.IMREAD_UNCHANGED).astype(np.float32) / 1000.0
-        d[d > 3.0] = 0.0  # reference datasets/scannet.py depth clamp
-        return d
+        # mm -> m, beyond 3 m zeroed (reference datasets/scannet.py)
+        return native_loader.decode_png_depth(path, MAX_DEPTH)
 
     def _read_cam(self, scene, vid):
         intr = np.loadtxt(os.path.join(self.source_path, scene, "intrinsic",
@@ -131,12 +130,8 @@ class ScanNetDataset:
         if not hasattr(self, "_size_cache"):
             self._size_cache = {}
         if scene not in self._size_cache:
-            from PIL import Image
-
-            with Image.open(os.path.join(self.source_path, scene, "color",
-                                         f"{vid}.jpg")) as im:
-                w, h = im.size
-            self._size_cache[scene] = (h, w)
+            self._size_cache[scene] = native_loader.jpeg_size(
+                os.path.join(self.source_path, scene, "color", f"{vid}.jpg"))
         return self._size_cache[scene]
 
     def _find_rts(self):

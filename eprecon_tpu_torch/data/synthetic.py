@@ -1,8 +1,9 @@
-"""Synthetic posed-RGBD fragments for smoke runs, tests and the training
-step (own copy of eprecon_tpu/data/synthetic.py:109-299 make_fragment).
+"""Synthetic posed-RGBD scenes and fragments for smoke runs, tests, the
+training step and the on-disk ScanNet-layout trees of
+tools/make_synthetic_scannet.py (own copy of eprecon_tpu/data/synthetic.py).
 
-A room with a floor and a few boxes, cameras on an arc looking at its
-centre, depth, images and per-pixel labels rendered analytically by ray
+Rooms with a floor and a few boxes (and doorway walls between rooms),
+optionally textured, cameras on arcs looking at each room's centre, depth, images and per-pixel labels rendered analytically by ray
 casting in numpy; the GT TSDF at three pyramid levels is fused from the
 depths with ops/tsdf_fusion.py (plain torch on the CPU), the voxel labels
 come from the boxes.
@@ -20,6 +21,7 @@ from eprecon_tpu_torch.ops import tsdf_fusion
 
 FLOOR_CLASS = 2               # nyu40 floor
 THING_CLASSES = [4, 5, 6, 7]  # bed, chair, sofa, table
+WALL_CLASS = 1                # nyu40 wall
 
 
 @dataclass
@@ -36,25 +38,56 @@ class Scene:
     boxes: List[Box]
     floor_z: float = 0.0
     floor_color: np.ndarray = None
+    # world-anchored albedo (photoconsistent across views): uniform
+    # surfaces leave the cross-view feature variance, EPRecon's occupancy
+    # cue (reference occupancy_initialization.py:126-128), blind; real
+    # ScanNet surfaces are textured, so the on-disk trees are too
+    textured: bool = False
 
     def __post_init__(self):
         if self.floor_color is None:
             self.floor_color = np.array([120.0, 120.0, 120.0])
 
 
-def make_scene(seed: int = 0, n_boxes: int = 3, extent: float = 3.0) -> Scene:
+def _albedo_texture(pts: np.ndarray) -> np.ndarray:
+    """Multiplicative albedo in [0.55, 1.45] from world position: an 8 cm
+    checker plus two incommensurate sinusoid bands."""
+    c = np.floor(pts / 0.08).sum(axis=1) % 2.0
+    s1 = np.sin(pts[:, 0] * 23.0 + pts[:, 1] * 17.0 + pts[:, 2] * 11.0)
+    s2 = np.sin(pts[:, 0] * 5.3 - pts[:, 1] * 7.1 + pts[:, 2] * 3.7)
+    return 1.0 + 0.30 * (c - 0.5) + 0.15 * s1 + 0.15 * s2
+
+
+def make_scene(seed: int = 0, n_boxes: int = 3, extent: float = 3.0,
+               n_rooms: int = 1, room_pitch: float = 4.0,
+               textured: bool = False) -> Scene:
+    """n_rooms > 1 lays out `n_boxes` things per room along +x, with a
+    doorway-gapped dividing wall (class 1 stuff) between adjacent rooms:
+    scenes larger than one fragment window."""
     rng = np.random.default_rng(seed)
     boxes = []
-    for inst in range(3, 3 + n_boxes):
-        center = rng.uniform(-extent / 2 + 0.6, extent / 2 - 0.6, 3)
-        size = rng.uniform(0.3, 0.9, 3)
-        lo = center - size / 2
-        hi = center + size / 2
-        lo[2] = 0.0
-        hi[2] = max(hi[2], 0.3)
-        boxes.append(Box(lo, hi, int(rng.choice(THING_CLASSES)), inst,
-                         rng.uniform(40, 230, 3)))
-    return Scene(boxes)
+    inst = 3
+    for room in range(n_rooms):
+        cx = room * room_pitch
+        for _ in range(n_boxes):
+            center = rng.uniform(-extent / 2 + 0.6, extent / 2 - 0.6, 3)
+            center[0] += cx
+            size = rng.uniform(0.3, 0.9, 3)
+            lo = center - size / 2
+            hi = center + size / 2
+            lo[2] = 0.0
+            hi[2] = max(hi[2], 0.3)
+            boxes.append(Box(lo, hi, int(rng.choice(THING_CLASSES)), inst,
+                             rng.uniform(40, 230, 3)))
+            inst += 1
+        if room + 1 < n_rooms:
+            # dividing wall at x = cx + pitch/2, 1 m doorway at y in [-0.5, 0.5]
+            wx = cx + room_pitch / 2
+            for ylo, yhi in ((-extent, -0.5), (0.5, extent)):
+                boxes.append(Box(np.array([wx - 0.05, ylo, 0.0]),
+                                 np.array([wx + 0.05, yhi, 2.2]), WALL_CLASS,
+                                 WALL_CLASS, np.array([200.0, 200.0, 200.0])))
+    return Scene(boxes, textured=textured)
 
 
 def _ray_box(origins, dirs, lo, hi):
@@ -107,6 +140,10 @@ def render_view(scene: Scene, intr: np.ndarray, pose: np.ndarray,
         rgb[best_obj == bi] = box.color
         sem[best_obj == bi] = box.cls
         ins[best_obj == bi] = box.instance
+    if scene.textured:
+        hit = best_obj != -1
+        pts = origins[hit] + best_t[hit, None] * dirs[hit]
+        rgb[hit] = np.clip(rgb[hit] * _albedo_texture(pts)[:, None], 0, 255)
     rgb[best_obj == -1] = 30.0
     sem[z <= 0] = 0
     ins[z <= 0] = 0
@@ -135,6 +172,21 @@ def orbit_poses(n_views: int, radius: float = 2.2, height: float = 1.4,
         pose[:3, 3] = eye
         poses.append(pose)
     return np.stack(poses).astype(np.float32)
+
+
+def walkthrough_poses(n_views: int, n_rooms: int, room_pitch: float = 4.0,
+                      radius: float = 2.2, height: float = 1.4) -> np.ndarray:
+    """Room-by-room trajectory: a full orbit inside each room in turn, so
+    fragments cross room boundaries mid-scene."""
+    per = n_views // n_rooms
+    chunks = []
+    for r in range(n_rooms):
+        n = per if r + 1 < n_rooms else n_views - per * (n_rooms - 1)
+        chunks.append(orbit_poses(
+            n, radius=radius, height=height, start=0.3 * r,
+            sweep=2 * np.pi * (n - 1) / max(n, 1),
+            center=(r * room_pitch, 0.0)))
+    return np.concatenate(chunks)
 
 
 def voxel_labels(scene: Scene, origin: np.ndarray, voxel_size: float,

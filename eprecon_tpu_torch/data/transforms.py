@@ -15,7 +15,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from eprecon_tpu_torch.device import DeviceLike, resolve_device
 from eprecon_tpu_torch.ops import camera as cam
@@ -42,15 +41,38 @@ def pad_scannet(img: np.ndarray, intrinsics: np.ndarray):
     return img, intrinsics
 
 
+def _bilinear_axis(n_in: int, n_out: int):
+    """Source rows (or columns) and the far one's weight for each output
+    one: the half-pixel mapping, clamped at the edges."""
+    scale = torch.tensor(float(n_in), dtype=torch.float32) / n_out
+    pos = (torch.arange(n_out, dtype=torch.float32) + 0.5) * scale - 0.5
+    i0 = pos.to(torch.int64).clamp(min=0)     # truncation, as C's (int)
+    i1 = (i0 + 1).clamp(max=n_in - 1)
+    return i0, i1, (pos - i0.to(torch.float32)).clamp(min=0)
+
+
 def resize_bilinear(img: np.ndarray, size) -> np.ndarray:
     """[H, W(, C)] -> [h, w(, C)] f32 for size (w, h): bilinear with the
     half-pixel mapping and edge clamp of cv2.resize's INTER_LINEAR (no
-    antialiasing)."""
+    antialiasing). The float arithmetic is the native loader's
+    (csrc/fragment_loader.cpp resize_bilinear), one rounding per
+    operation, so a frame resized here equals the same frame resized by
+    the decode-ahead loader bit for bit."""
+    if np.shape(img)[:2] == (size[1], size[0]):
+        # the arithmetic below is then v * 1 + w * 0 = v: skip it
+        return np.array(img, np.float32)
     x = torch.from_numpy(np.asarray(img, np.float32))
     x = x[..., None] if x.ndim == 2 else x
-    out = F.interpolate(x.permute(2, 0, 1)[None], size=(size[1], size[0]),
-                        mode="bilinear", align_corners=False, antialias=False)
-    out = out[0].permute(1, 2, 0).contiguous().numpy()
+    y0, y1, wy = _bilinear_axis(x.shape[0], size[1])
+    x0, x1, wx = _bilinear_axis(x.shape[1], size[0])
+    wy, wx = wy[:, None, None], wx[None, :, None]
+
+    def row(r):   # (1 - wx) * v0 + wx * v1 along the output row
+        r = x.index_select(0, r)
+        return r.index_select(1, x0).mul_(1 - wx).add_(
+            r.index_select(1, x1).mul_(wx))
+
+    out = row(y0).mul_(1 - wy).add_(row(y1).mul_(wy)).numpy()
     return out[..., 0] if np.ndim(img) == 2 else out
 
 

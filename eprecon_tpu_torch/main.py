@@ -6,8 +6,16 @@ main.py:25-449).
 
 Runs on CUDA (`--device cuda:N` picks a card) and raises where CUDA is
 absent; `--device cpu` runs the plain versions on the CPU. Checkpoints are
-the port's own (`train/checkpoint.py`). The fragment loader reads in the
-loop's own thread: `n_workers` does not start a prefetcher.
+the port's own (`train/checkpoint.py`). `train.n_workers` /
+`test.n_workers` > 0 decode the frames ahead in that many native threads
+(data/prefetch.py); 0 reads them in the loop's thread.
+
+Departure from the JAX CLI: the learning-rate milestones count optimizer
+updates, so the schedule is given updates per epoch (micro-steps /
+accumulation_steps, unrounded) and each milestone falls within one update
+of its epoch's start, as the reference's MultiStepLR does; the JAX CLI
+gives micro-steps per epoch and drops the rate accumulation_steps times
+late.
 """
 from __future__ import annotations
 
@@ -60,10 +68,28 @@ def _resolve_auto_extent(cfg: Config, mode: str) -> Config:
         cfg.model, global_extent=ext, origin_margin=margin))
 
 
+def _make_prefetcher(cfg: Config, dataset, n_workers: int):
+    """The native decode-ahead loader (reference main.py:130-151
+    num_workers), or None when n_workers <= 0."""
+    if n_workers <= 0:
+        return None
+    from eprecon_tpu_torch.data.prefetch import FragmentPrefetcher
+
+    return FragmentPrefetcher(dataset, n_threads=n_workers)
+
+
+def _samples(dataset, prefetcher, indices):
+    if prefetcher is not None:
+        yield from prefetcher.iterate(indices)
+    else:
+        for i in indices:
+            yield dataset[i]
+
+
 def run_train(cfg: Config, device: DeviceLike = None):
-    """Train one scene stream on one card from cfg.train.path; resume from
-    the newest checkpoint in cfg.logdir (cfg.resume) or start from
-    cfg.loadckpt. Returns the Trainer."""
+    """Train one scene stream on one card from cfg.train.path; with
+    cfg.resume, from the newest checkpoint in cfg.logdir (fresh where
+    there is none), else from cfg.loadckpt. Returns the Trainer."""
     from eprecon_tpu_torch.data.sampler import ContiguousDistributedSampler
     from eprecon_tpu_torch.models.eprecon import EPRecon
     from eprecon_tpu_torch.train import checkpoint as ckpt
@@ -73,40 +99,43 @@ def run_train(cfg: Config, device: DeviceLike = None):
     device = resolve_device(device)
     cfg = _resolve_auto_extent(cfg, "train")
     dataset = build_dataset(cfg, "train", device=device)
-    steps_per_epoch = max(len(dataset), 1)
+    # optimizer updates per epoch: the schedule counts updates
+    updates_per_epoch = max(len(dataset), 1) / cfg.train.accumulation_steps
     trainer = Trainer(cfg, EPRecon(cfg.model, seed=cfg.seed), device,
-                      steps_per_epoch)
-    latest = ckpt.latest_checkpoint(cfg.logdir) if cfg.resume else None
-    if latest:
-        ckpt.restore_checkpoint(latest, trainer)
-        print(f"resumed from {latest} at epoch {trainer.epoch}, "
-              f"step {trainer.step_count}")
+                      updates_per_epoch)
+    if cfg.resume:
+        latest = ckpt.latest_checkpoint(cfg.logdir)
+        if latest:
+            ckpt.restore_checkpoint(latest, trainer)
+            print(f"resumed from {latest} at epoch {trainer.epoch}, "
+                  f"step {trainer.step_count}")
     elif cfg.loadckpt:
         ckpt.restore_checkpoint(cfg.loadckpt, trainer)
     sampler = ContiguousDistributedSampler(len(dataset), 1, 0)
+    prefetcher = _make_prefetcher(cfg, dataset, cfg.train.n_workers)
 
     def iter_epoch(epoch):
         dataset.epoch = epoch
-        for i in sampler:
-            yield dataset[i]
+        yield from _samples(dataset, prefetcher, list(sampler))
 
-    return train_epochs(cfg, trainer, iter_epoch)
+    try:
+        return train_epochs(cfg, trainer, iter_epoch)
+    finally:
+        if prefetcher is not None:
+            prefetcher.close()
 
 
 def run_test(cfg: Config, device: DeviceLike = None):
     """Stream the test split through the reconstructor, save the scenes
-    under <logdir>/scenes and score them against the tree's GT volumes.
-    Returns the finished scenes."""
+    under <logdir>/scenes and score them against the tree's GT volumes;
+    with test.eval_depth_frames > 0, then run the depth protocol over the
+    saved scenes (tools/evaluation.py main). Returns the finished
+    scenes."""
     from eprecon_tpu_torch.inference.pipeline import StreamingReconstructor
     from eprecon_tpu_torch.models.eprecon import EPRecon
     from eprecon_tpu_torch.train import checkpoint as ckpt
     from eprecon_tpu_torch.train.loop import evaluate
 
-    if cfg.test.eval_depth_frames > 0:
-        raise NotImplementedError(
-            "test.eval_depth_frames > 0: the depth-evaluation protocol "
-            "(tools/evaluation.py render_tsdf_depth, trim_tsdf) is not ported "
-            "yet (ROADMAP item 14)")
     device = resolve_device(device)
     cfg = _resolve_auto_extent(cfg, "test")
     dataset = build_dataset(cfg, "test", device=device)
@@ -116,9 +145,25 @@ def run_test(cfg: Config, device: DeviceLike = None):
     recon = StreamingReconstructor(cfg, model, device)
     out_dir = os.path.join(cfg.logdir, "scenes")
     gt_dir = os.path.join(cfg.test.path, "all_tsdf_9")
-    return evaluate(cfg, recon, (dataset[i] for i in range(len(dataset))),
-                    out_dir=out_dir,
-                    gt_dir=gt_dir if os.path.isdir(gt_dir) else None)
+    prefetcher = _make_prefetcher(cfg, dataset, cfg.test.n_workers)
+    try:
+        results = evaluate(cfg, recon,
+                           _samples(dataset, prefetcher, range(len(dataset))),
+                           out_dir=out_dir,
+                           gt_dir=gt_dir if os.path.isdir(gt_dir) else None)
+    finally:
+        if prefetcher is not None:
+            prefetcher.close()
+    if cfg.test.eval_depth_frames > 0:
+        # the depth protocol over the saved scenes (reference
+        # tools/evaluation.py:161-208): held-out frames come from the tree
+        # the dataset read
+        from eprecon_tpu_torch.tools.evaluation import main as eval_main
+
+        eval_main(["--result_dir", out_dir, "--data_path", cfg.test.path,
+                   "--max_frames", str(cfg.test.eval_depth_frames),
+                   "--device", str(device)])
+    return results
 
 
 def main(argv=None):

@@ -1,17 +1,47 @@
 """TSDF fusion of depth frames into a dense volume, plain PyTorch (port of
-eprecon_tpu/ops/tsdf_fusion.py:41-103; reference tools/tsdf_fusion/
+eprecon_tpu/ops/tsdf_fusion.py:20-103; reference tools/tsdf_fusion/
 fusion.py:440-485): nearest-pixel depth lookup, truncation to [., 1],
 running weighted average. It makes the ground truth of the synthetic
-fragments and, on the model's device, the per-sample GT of the data
-pipeline (data/transforms.py).
+fragments, on the model's device the per-sample GT of the data pipeline
+(data/transforms.py), and the full-scene GT of tools/generate_gt.py.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
 from eprecon_tpu_torch.ops.grid import dense_coords
+
+
+class TSDFVolume(NamedTuple):
+    """A dense TSDF volume: tsdf [X, Y, Z] f32 (init 1), weight (init 0),
+    origin [3] (world position of voxel (0, 0, 0)), all on one device."""
+    tsdf: torch.Tensor
+    weight: torch.Tensor
+    origin: torch.Tensor
+    voxel_size: float
+    sdf_trunc: float
+
+    def integrate(self, depth_im: torch.Tensor, cam_intr: torch.Tensor,
+                  cam_pose: torch.Tensor) -> "TSDFVolume":
+        """The volume with one more depth frame fused in (`integrate`)."""
+        tsdf, weight = integrate(self.tsdf, self.weight, self.origin,
+                                 self.voxel_size, self.sdf_trunc, depth_im,
+                                 cam_intr, cam_pose)
+        return self._replace(tsdf=tsdf, weight=weight)
+
+
+def make_volume(vol_dim: Sequence[int], origin, voxel_size: float,
+                margin: int = 3, device=None) -> TSDFVolume:
+    """An empty volume of `vol_dim` voxels at `origin` on `device`, its
+    truncation `margin` voxels."""
+    vol_dim = tuple(int(d) for d in vol_dim)
+    return TSDFVolume(
+        tsdf=torch.ones(vol_dim, device=device),
+        weight=torch.zeros(vol_dim, device=device),
+        origin=torch.as_tensor(origin, dtype=torch.float32, device=device),
+        voxel_size=float(voxel_size), sdf_trunc=float(margin * voxel_size))
 
 
 def integrate(tsdf: torch.Tensor, weight: torch.Tensor, origin: torch.Tensor,
@@ -54,13 +84,10 @@ def fuse_frames(depths: torch.Tensor, intrinsics: torch.Tensor,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fuse frames [V, H, W] (intrinsics [V, 3, 3], poses [V, 4, 4]) into
     a fresh volume of `vol_dim` voxels at `origin`. Returns (tsdf, weight)."""
-    dev = depths.device
-    tsdf = torch.ones(tuple(vol_dim), device=dev)
-    weight = torch.zeros(tuple(vol_dim), device=dev)
+    vol = make_volume(vol_dim, origin, voxel_size, margin, depths.device)
     for d, k, p in zip(depths, intrinsics, poses):
-        tsdf, weight = integrate(tsdf, weight, origin, voxel_size,
-                                 margin * voxel_size, d, k, p)
-    return tsdf, weight
+        vol = vol.integrate(d, k, p)
+    return vol.tsdf, vol.weight
 
 
 def occupancy_from_tsdf(tsdf: torch.Tensor, weight: torch.Tensor,

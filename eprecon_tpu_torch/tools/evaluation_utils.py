@@ -1,11 +1,11 @@
-"""3D mesh and panoptic evaluation metrics, numpy and scipy (own copy of
-eprecon_tpu/tools/evaluation_utils.py; the depth metrics come with the
-depth protocol).
+"""3D mesh, 2D depth and panoptic evaluation metrics, numpy and scipy (own
+copy of eprecon_tpu/tools/evaluation_utils.py).
 
-Reference: tools/evaluation_utils.py:5-42 — eval_mesh computes bidirectional
+Reference: tools/evaluation_utils.py:5-109 — eval_mesh computes bidirectional
 nearest-neighbor point distances (2 cm downsample, 5 cm inlier threshold →
-dist1/dist2/precision/recall/F-score). KD-trees come from scipy (the
-reference used open3d's; identical math).
+dist1/dist2/precision/recall/F-score); eval_depth computes the standard
+AbsRel/AbsDiff/SqRel/RMSE/LogRMSE/δ<1.25^k/complete set. KD-trees come from
+scipy (the reference used open3d's; identical math).
 """
 from __future__ import annotations
 
@@ -51,6 +51,31 @@ def eval_mesh(verts_pred: np.ndarray, verts_gt: np.ndarray,
         dist1=float(np.mean(dist2)) if len(dist2) else np.inf,  # pred→gt (acc)
         dist2=float(np.mean(dist1)) if len(dist1) else np.inf,  # gt→pred (compl)
         prec=precision, recal=recal, fscore=fscore,
+    )
+
+
+def eval_depth(depth_pred: np.ndarray, depth_trgt: np.ndarray) -> Dict[str, float]:
+    """reference evaluation_utils.py:73-109."""
+    mask1 = depth_pred > 0
+    mask = (depth_trgt < 10) & (depth_trgt > 0) & mask1
+    depth_pred = depth_pred[mask]
+    depth_trgt = depth_trgt[mask]
+    if len(depth_pred) == 0:
+        return {k: np.nan for k in ("AbsRel", "AbsDiff", "SqRel", "RMSE",
+                                    "LogRMSE", "r1", "r2", "r3", "complete")}
+    abs_diff = np.abs(depth_pred - depth_trgt)
+    abs_rel = abs_diff / depth_trgt
+    sq_diff = abs_diff ** 2
+    sq_rel = sq_diff / depth_trgt
+    sq_log_diff = (np.log(depth_pred) - np.log(depth_trgt)) ** 2
+    thresh = np.maximum(depth_pred / depth_trgt, depth_trgt / depth_pred)
+    return dict(
+        AbsRel=float(abs_rel.mean()), AbsDiff=float(abs_diff.mean()),
+        SqRel=float(sq_rel.mean()), RMSE=float(np.sqrt(sq_diff.mean())),
+        LogRMSE=float(np.sqrt(sq_log_diff.mean())),
+        r1=float((thresh < 1.25).mean()), r2=float((thresh < 1.25 ** 2).mean()),
+        r3=float((thresh < 1.25 ** 3).mean()),
+        complete=float((depth_trgt > 0).mean() if mask1.sum() else 0.0),
     )
 
 

@@ -37,10 +37,12 @@ def parse_lr_epochs(spec: str) -> Tuple[List[int], float]:
     return [int(m) for m in miles.split(",")], 1.0 / float(gamma)
 
 
-def learning_rate(cfg: TrainConfig, steps_per_epoch: int, update: int) -> float:
+def learning_rate(cfg: TrainConfig, steps_per_epoch: float, update: int) -> float:
     """The rate of optimizer update `update` (0-based): lr, times gamma
     for each milestone epoch * steps_per_epoch it has reached, in f32 as
-    optax's piecewise_constant_schedule computes it."""
+    optax's piecewise_constant_schedule computes it. The schedule counts
+    updates, so `steps_per_epoch` is updates per epoch (the CLI passes
+    micro-steps / accumulation_steps, which may be fractional)."""
     miles, gamma = parse_lr_epochs(cfg.lr_epochs)
     lr = np.float32(cfg.lr)
     for m in sorted(set(m * steps_per_epoch for m in miles)):
@@ -61,7 +63,7 @@ class Optimizer:
     parameters, as optax computes it. State is f32, beside each parameter."""
 
     def __init__(self, params: Mapping[str, nn.Parameter], cfg: TrainConfig,
-                 steps_per_epoch: int = 1000, frozen: Sequence[str] = ()):
+                 steps_per_epoch: float = 1000, frozen: Sequence[str] = ()):
         if cfg.weight_decay:
             raise ValueError("the training recipe has no weight decay")
         self.cfg, self.steps_per_epoch = cfg, steps_per_epoch
@@ -145,7 +147,7 @@ class Trainer:
     on every micro-step, as the JAX step's `batch_stats` do."""
 
     def __init__(self, cfg: Config, model: EPRecon, device: DeviceLike = None,
-                 steps_per_epoch: int = 1000):
+                 steps_per_epoch: float = 1000):
         """`device` defaults to CUDA and raises if it is absent; pass
         device="cpu" to run the plain versions on the CPU."""
         self.cfg = cfg

@@ -30,6 +30,7 @@ from eprecon_tpu.train import loop as jloop
 from eprecon_tpu_torch import config as tconfig
 from eprecon_tpu_torch import main as tmain
 from eprecon_tpu_torch.tools import evaluation as teval
+from eprecon_tpu_torch.train import checkpoint as tckpt
 from eprecon_tpu_torch.train import loop as tloop
 
 REPO = Path(__file__).resolve().parents[1]
@@ -288,11 +289,108 @@ def test_cli_train_then_test_on_cpu(root, tmp_path):
 
 def test_main_refuses_without_cuda(monkeypatch):
     """Without --device the CLI asks for CUDA and raises where it is
-    absent; the depth protocol raises, naming its ROADMAP item."""
+    absent, for the test protocol with depth evaluation too."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tmain.main(["--cfg", str(REPO / "config/test.yaml")])
-    cfg = tconfig.load_config(str(REPO / "config/test.yaml"),
-                              [("test.eval_depth_frames", 3)])
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        tmain.run_test(cfg, "cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tmain.main(["--cfg", str(REPO / "config/test.yaml"),
+                    "test.eval_depth_frames", "3"])
+
+
+def _train_cfg(root, logdir, *opts):
+    return tconfig.load_config(str(REPO / "config/train.yaml"), tconfig.parse_cli_overrides(
+        micro_overrides(root, logdir) + list(opts)))
+
+
+@pytest.fixture
+def no_training(monkeypatch):
+    """run_train without its epochs: train_epochs returns the trainer after
+    pulling the first sample of epoch 0; checkpoint restores are recorded,
+    not read."""
+    seen = dict(restored=[], samples=[])
+
+    def fake_train_epochs(cfg, trainer, iter_epoch):
+        seen["trainer"] = trainer
+        seen["samples"].append(next(iter(iter_epoch(0))))
+        return trainer
+
+    monkeypatch.setattr(tloop, "train_epochs", fake_train_epochs)
+    monkeypatch.setattr(tckpt, "restore_checkpoint",
+                        lambda path, trainer: seen["restored"].append(path))
+    return seen
+
+
+def test_resume_without_checkpoint_starts_fresh(root, tmp_path, no_training):
+    """resume with no checkpoint in the logdir starts fresh, as the JAX CLI
+    does (eprecon_tpu/main.py:77-84): loadckpt is not read. Without resume
+    loadckpt is read; with a checkpoint in the logdir resume takes it."""
+    logdir = tmp_path / "run"
+    other = str(tmp_path / "elsewhere" / "model_000003")
+    base = ["loadckpt", other, "train.n_workers", "0"]
+    tmain.run_train(_train_cfg(root, logdir, *base, "resume", "true"), "cpu")
+    assert no_training["restored"] == []
+    tmain.run_train(_train_cfg(root, logdir, *base, "resume", "false"), "cpu")
+    assert no_training["restored"] == [other]
+    logdir.mkdir(exist_ok=True)
+    (logdir / "model_000002").write_bytes(b"")
+    tmain.run_train(_train_cfg(root, logdir, *base, "resume", "true"), "cpu")
+    assert no_training["restored"] == [other, str(logdir / "model_000002")]
+
+
+def test_lr_milestones_fall_at_their_epochs(root, tmp_path, no_training):
+    """With lr_epochs 70,90:10 and accumulation 8 (the recipe), the first
+    update at lr/10 (lr/100) falls within one update of epoch 70's (90's)
+    start: the CLI gives the schedule updates per epoch (4 fragments / 8,
+    unrounded), where the JAX CLI gives micro-steps and drops the rate 8x
+    late. Here n_workers 2 starts the prefetcher, whose first sample is
+    the synchronous dataset[0]'s."""
+    from eprecon_tpu_torch.train.state import learning_rate
+
+    cfg = _train_cfg(root, tmp_path / "run", "train.lr_epochs", "70,90:10",
+                     "train.accumulation_steps", "8", "train.n_workers", "2")
+    trainer = tmain.run_train(cfg, "cpu")
+    per_epoch = len(tmain.build_dataset(cfg, "train", device="cpu"))
+    assert per_epoch == 4
+    rates = [learning_rate(cfg.train, trainer.optimizer.steps_per_epoch, u)
+             for u in range(200)]
+    for milestone, factor in ((70, 10), (90, 100)):
+        first = next(u for u, r in enumerate(rates) if r < cfg.train.lr / factor * 1.01)
+        start = milestone * per_epoch / cfg.train.accumulation_steps
+        assert abs(first - start) <= 1, (milestone, first, start)
+    (sample,) = no_training["samples"]
+    want = tmain.build_dataset(cfg, "train", device="cpu")[0]
+    np.testing.assert_array_equal(np.stack(sample["imgs"]), np.stack(want["imgs"]))
+
+
+def test_run_test_depth_protocol_on_cpu(root, tmp_path, monkeypatch):
+    """run_test with test.eval_depth_frames 2 on --device cpu through the
+    prefetcher (test.n_workers 2): the scene is saved and scored, then the
+    depth protocol merges AbsRel, RMSE and the trimmed-mesh metrics into
+    its _metrics.json, equal (1e-4) to what the JAX evaluation CLI computes
+    from the same saved scene (NaN where no rendered ray of the
+    random-weight micro model's scene meets a GT depth, on both sides)."""
+    from eprecon_tpu_torch.data import prefetch
+
+    iterated = []
+    iterate = prefetch.FragmentPrefetcher.iterate
+    monkeypatch.setattr(prefetch.FragmentPrefetcher, "iterate",
+                        lambda self, idx: iterated.append(list(idx)) or iterate(self, idx))
+    tree = _one_fragment_tree(root, tmp_path / "tree")
+    logdir = tmp_path / "run"
+    cfg = tconfig.load_config(str(REPO / "config/test.yaml"), tconfig.parse_cli_overrides(
+        micro_overrides(tree, logdir) + ["test.n_views", str(CLI_VIEWS),
+                                         "test.n_workers", "2",
+                                         "test.eval_depth_frames", "2"]))
+    results = tmain.run_test(cfg, "cpu")
+    assert [r.name for r in results] == ["scene0000_00"] and iterated == [[0]]
+    scenes = logdir / "scenes"
+    got = json.loads((scenes / "scene0000_00_metrics.json").read_text())
+    assert {"AbsRel", "RMSE", "fscore", "PQ"} <= got.keys()
+    os.remove(scenes / "scene0000_00_metrics.json")
+    jeval.main(["--result_dir", str(scenes), "--data_path", str(tree),
+                "--max_frames", "2"])
+    want = json.loads((scenes / "scene0000_00_metrics.json").read_text())
+    assert {"AbsRel", "RMSE", "fscore"} <= set(want) <= set(got)
+    for k in want:
+        assert got[k] == pytest.approx(want[k], rel=1e-4, abs=1e-4, nan_ok=True), k
