@@ -3,9 +3,12 @@
 Own copy of the dataclasses in `eprecon_tpu/config.py` (reference:
 config/default.py, config/train.yaml, config/test.yaml). Left for the
 slices that use them: sparse-engine capacities. Two JAX-only knobs are not
-fields (`remat_mode`, a TPU memory setting, and `bp_backward`, a TPU choice
-between two equal adjoints: the port has one backward kernel); a YAML file
-or override that sets one is accepted and ignored.
+fields (`remat_mode`, a TPU memory setting: the port's peak of 26.92 GiB
+on an 80 GB card has not called for recompute; and `bp_backward`, a TPU
+choice between two equal adjoints: the port has one backward kernel); a
+YAML file or override that sets one is accepted and ignored.
+`model.sparsereg_dropout` is a field, and only False builds a model (see
+models/eprecon.EPReconCore).
 
 The YAML files are read by a parser of the subset they use (nested
 mappings by indentation, scalars resolved as YAML 1.1 resolves them, flow
@@ -65,6 +68,9 @@ class ModelConfig:
     # BGR pixel mean/std (reference config/default.py:60-61)
     pixel_mean: Tuple[float, float, float] = (103.53, 116.28, 123.675)
     pixel_std: Tuple[float, float, float] = (1.0, 1.0, 1.0)
+    # dropout at the U-Net's L2 in training (JAX eprecon_tpu/models/
+    # unet_dense.py:76-77); True is refused when the model is built
+    sparsereg_dropout: bool = False
     backbone2d: Backbone2DConfig = field(default_factory=Backbone2DConfig)
     panoptic: PanopticConfig = field(default_factory=PanopticConfig)
     # occupancy initialization (reference models/neucon_network.py:239-244)

@@ -156,6 +156,13 @@ class EPReconCore(nn.Module):
     def __init__(self, cfg: ModelConfig, use_running_average: bool = False,
                  generator: torch.Generator = None):
         super().__init__()
+        if cfg.sparsereg_dropout:
+            raise ValueError(
+                "model.sparsereg_dropout=True is not supported: the JAX "
+                "package's U-Net dropout (eprecon_tpu/models/unet_dense.py:"
+                "76-77) draws from a 'dropout' RNG stream that no apply of "
+                "the JAX package passes, so it fails at its first forward; "
+                "the port has no dropout for it to match")
         self.cfg = cfg
         ura = use_running_average
         ch_init, channels, ch_in = channel_plan(cfg)

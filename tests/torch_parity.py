@@ -14,6 +14,16 @@ import torch
 from eprecon_tpu_torch import config as tconfig
 from eprecon_tpu_torch.convert import variables_to_torch
 
+# writers of a ScanNet download's formats (.sens, binary PLY, segs and
+# aggregation json, label tsv), the torchvision MNASNet schema and the
+# reference's checkpoint format: one copy, beside the card check that
+# packs a raw scan from the port's tree with them
+from chip_smoke import (SYNTHETIC_CATEGORIES, mnasnet1_0_schema,  # noqa: F401
+                        pack_scene_sens, random_mnasnet_state_dict,
+                        scannet_renumbered, write_label_tsv, write_ply_binary,
+                        write_reference_checkpoint, write_scannet_annotations,
+                        write_sens)
+
 
 def to_np(tree):
     """jax tree -> numpy tree (bf16 widened to f32)."""
