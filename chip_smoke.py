@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (eprecon_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --ddp-phase    # the ddp phase alone (several cards)
 
 Phases (any failure exits non-zero before the result line):
   1. build csrc/back_project.cu (forward and backward kernels) for sm_90a
@@ -69,7 +70,28 @@ Phases (any failure exits non-zero before the result line):
      and without the prefetcher, host ms per sample by stage, the test's
      fragment ms, keyframes/s and p50, [depth-eval] (render ms per frame,
      trim seconds, AbsRel / RMSE / fscore per scene) and the peak memory;
-  7. upstream artifacts (the import phase, over the cli phase's tree and
+  7. data-parallel training (the ddp phase, over the cli phase's tree and
+     reductions; parallel/mesh.py): (a) `torchrun --standalone
+     --nproc_per_node 2 chip_smoke.py --ddp-rank ...` runs
+     eprecon_tpu_torch.main.main in each rank with `--dist-backend gloo`
+     (two ranks share the card), one scene per rank, 2 epochs, decode-ahead
+     with 4 threads per rank; (b) the same launch with `--dist-backend
+     nccl` and one rank per card (`torch.cuda.device_count()`), 1 epoch.
+     Each rank counts its kernel launches per step, times its steps and
+     its all-reduce (host clock, card synchronised around it; the
+     collective apart from packing the flat buffer, the wait for the other
+     ranks apart) and prints one JSON line. Fails unless torchrun exits 0, every step
+     of every rank launched 4 forward and 4 backward kernels, the ranks'
+     parameters are equal bit for bit at the end of (a) (and of (b) with
+     two or more cards) and moved, rank 0 alone wrote the checkpoints and
+     metrics.jsonl (one record per step, finite losses), and, with one
+     card, (b)'s first step's loss terms equal the cli phase's first
+     step's within 1e-3 relative. Prints [ddp] (per rank the medians of the
+     steps after its first: step ms, all-reduce ms and its collective,
+     the wait; peak GiB per rank; free memory before the launch).
+     `chip_smoke.py --ddp-phase` runs this phase alone over a fresh tree
+     (on several cards: nccl across them);
+  8. upstream artifacts (the import phase, over the cli phase's tree and
      reductions): a reference-format checkpoint of random weights from a
      seed ({"epoch", "model" with 'module.' prefixes, "optimizer"}) and its
      activation fingerprint recorded under a non-default layout
@@ -92,27 +114,32 @@ Phases (any failure exits non-zero before the result line):
      fragment, the scene saved with a finite surface and scored, and
      generate_semantic_instance.export_scene writes a label per vertex of
      the scan's mesh. Prints [import], [ingest] and [serve-imported];
-  8. reference checks at tiny size: the same forward, and one training
+  9. reference checks at tiny size: the same forward, and one training
      micro-step, on CUDA and on the CPU (the CPU port is held against the
      JAX package by tests/test_torch_forward.py and test_torch_train.py).
 Prints ptxas's registers and spills per kernel instance, the card's name
 and power limit, a JSON line of kernel results (`launches` from the
 serving path, `train_launches` from the training phase, `cli_launches`
-from the CLI phase, `import_launches` from serving the imported
-checkpoint), and as the last line {"ok": true, "device": {...}}.
+from the CLI phase, `ddp_launches` summed over the ddp phase's ranks,
+`import_launches` from serving the imported checkpoint), and as the last
+line {"ok": true, "device": {...}}.
 Full results also go to chip_smoke.json in the output directory beside
 the script.
 """
 import ast
 import contextlib
 import dataclasses
+import hashlib
 import json
+import os
 import re
 import shutil
+import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 REPO = Path(__file__).resolve().parent
 TOL = 1e-2                  # kernel vs plain, relative to max(1, |plain|)
@@ -1007,6 +1034,287 @@ def cli_phase(root: Path, card):
 
 
 # --------------------------------------------------------------------------
+# ddp phase: data-parallel training through the CLI under torchrun, one
+# scene stream per rank, over the cli phase's tree
+# --------------------------------------------------------------------------
+
+DDP_GLOO_RANKS, DDP_GLOO_EPOCHS, DDP_NCCL_EPOCHS = 2, 2, 1
+DDP_WORKERS = 4          # decode-ahead threads per rank (8 cores, 2 ranks)
+DDP_LOSS_RTOL = 1e-3     # nccl with one card against the cli phase's step 1
+
+
+def _params_digest(model) -> str:
+    h = hashlib.sha256()
+    for name, p in sorted(model.named_parameters()):
+        h.update(name.encode())
+        h.update(p.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def ddp_rank(out_dir: Path, cli_args) -> int:
+    """One rank of the ddp phase, started by torchrun: runs
+    eprecon_tpu_torch.main.main(cli_args) with each Trainer.step counted
+    (forward and backward launches, host ms with the card synchronised),
+    each all-reduce timed (the card synchronised and the ranks' hosts met
+    before it, so the wait for the slower rank is apart; the card
+    synchronised after it; the collective itself, torch.distributed's
+    all_reduce, timed apart from packing the flat buffer), torch.save and
+    SummaryWriter recorded; prints one JSON line and writes it to
+    <out_dir>/rank<r>.json."""
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    from eprecon_tpu_torch import main as cli
+    from eprecon_tpu_torch.ops import back_project as bp
+    from eprecon_tpu_torch.parallel import mesh
+    from eprecon_tpu_torch.train.state import Trainer
+    from eprecon_tpu_torch.utils import logging as tlog
+
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    per_step, step_ms, saved, writers, digests = [], [], [], [], {}
+    reduce_ms, wait_ms, collective_ms, buffer_mib = [], [], [], []
+    init, step, reduce_ = Trainer.__init__, Trainer.step, mesh.all_reduce_mean
+    collective = mesh.dist.all_reduce
+    save, writer_cls = torch.save, tlog.SummaryWriter
+
+    def init_recorded(self, *a, **kw):
+        init(self, *a, **kw)
+        digests["initial"] = _params_digest(self.model)
+
+    def step_recorded(self, *a, **kw):
+        torch.cuda.synchronize()
+        before = (bp.total_launches(), bp.total_backward_launches())
+        t0 = time.perf_counter()
+        out = step(self, *a, **kw)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        per_step.append((bp.total_launches() - before[0],
+                         bp.total_backward_launches() - before[1]))
+        return out
+
+    def collective_recorded(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = collective(*a, **kw)
+        torch.cuda.synchronize()
+        collective_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    def reduce_recorded(tensors):
+        # the wait for the other ranks apart: card synchronised, hosts met;
+        # the collective itself apart from packing the flat buffer
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mesh.synchronize()
+        t1 = time.perf_counter()
+        mesh.dist.all_reduce = collective_recorded
+        try:
+            out = reduce_(tensors)
+        finally:
+            mesh.dist.all_reduce = collective
+        torch.cuda.synchronize()
+        buffer_mib.append(4 * sum(t.numel() for t in tensors) / 2 ** 20)
+        wait_ms.append(1e3 * (t1 - t0))
+        reduce_ms.append(1e3 * (time.perf_counter() - t1))
+        return out
+
+    def save_recorded(obj, f, *a, **kw):
+        saved.append(str(f))
+        return save(obj, f, *a, **kw)
+
+    class CountedWriter(writer_cls):
+        def __init__(self, *a, **kw):
+            writers.append(rank)
+            super().__init__(*a, **kw)
+
+    Trainer.__init__, Trainer.step = init_recorded, step_recorded
+    mesh.all_reduce_mean, torch.save = reduce_recorded, save_recorded
+    tlog.SummaryWriter = CountedWriter
+    bp.launch_counts.clear()
+    bp.backward_launch_counts.clear()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        trainer = cli.main(cli_args)
+    finally:
+        Trainer.__init__, Trainer.step = init, step
+        mesh.all_reduce_mean, torch.save = reduce_, save
+        tlog.SummaryWriter = writer_cls
+    res = dict(
+        rank=rank, world=world, device=str(trainer.device), steps=per_step,
+        step_ms=step_ms, all_reduce_ms=reduce_ms, wait_ms=wait_ms,
+        collective_ms=collective_ms,
+        buffer_mib=buffer_mib[0] if buffer_mib else None,
+        peak_gib=torch.cuda.max_memory_allocated(trainer.device) / 2 ** 30,
+        initial=digests["initial"], final=_params_digest(trainer.model),
+        saved=saved, writers=len(writers),
+        launches=[[*k, n] for k, n in bp.launch_counts.items()],
+        backward_launches=[[*k, n] for k, n in bp.backward_launch_counts.items()])
+    line = json.dumps(res)
+    print(f"[ddp-rank] {line}", flush=True)
+    (Path(out_dir) / f"rank{rank}.json").write_text(line)
+    return 0
+
+
+def _torchrun(nproc: int, out_dir: Path, args, tag: str):
+    """torchrun --standalone --nproc_per_node nproc chip_smoke.py
+    --ddp-rank out_dir ARGS; fails unless it exits 0. Returns the ranks'
+    results and the launch's wall seconds."""
+    out_dir.mkdir(parents=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", str(REPO / "chip_smoke.py"),
+           "--ddp-rank", str(out_dir), *args]
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        print(f"[ddp:{tag}] {line}", flush=True)
+    if proc.returncode != 0:
+        print(proc.stderr[-6000:], file=sys.stderr, flush=True)
+        raise AssertionError(f"torchrun ({tag}, {nproc} ranks) exited "
+                             f"{proc.returncode}")
+    return [json.loads((out_dir / f"rank{r}.json").read_text())
+            for r in range(nproc)], wall
+
+
+def _check_ranks(ranks, steps: int, logdir: Path, epochs: int, tag: str):
+    """Every step of every rank launched 4 + 4 kernels; parameters equal
+    across ranks and moved; rank 0 alone wrote the checkpoints and
+    metrics.jsonl (one record per step, finite losses). Returns the
+    records."""
+    import numpy as np
+
+    for r in ranks:
+        if r["steps"] != [[4, 4]] * steps:
+            raise AssertionError(f"{tag} rank {r['rank']}: steps launched "
+                                 f"{r['steps']}, want [4, 4] x {steps}")
+    if len({r["final"] for r in ranks}) != 1:
+        raise AssertionError(f"{tag}: the ranks' parameters differ")
+    if ranks[0]["final"] == ranks[0]["initial"]:
+        raise AssertionError(f"{tag}: parameters did not move")
+    want = [f"model_{e:06d}" for e in range(epochs)]
+    if [Path(p).name.split(".")[0] for p in ranks[0]["saved"]] != want or any(
+            r["saved"] for r in ranks[1:]):
+        raise AssertionError(f"{tag}: checkpoints written "
+                             f"{[r['saved'] for r in ranks]}")
+    if [r["writers"] for r in ranks] != [1] + [0] * (len(ranks) - 1):
+        raise AssertionError(f"{tag}: summary writers "
+                             f"{[r['writers'] for r in ranks]}")
+    if sorted(p.name for p in logdir.glob("model_*")) != want:
+        raise AssertionError(f"{tag}: checkpoints {sorted(logdir.glob('model_*'))}")
+    records = [json.loads(x) for x in (logdir / "metrics.jsonl").open()]
+    if [x["step"] for x in records] != list(range(1, steps + 1)):
+        raise AssertionError(f"{tag}: metrics.jsonl steps "
+                             f"{[x['step'] for x in records]}")
+    if not all(np.isfinite(x[k]) for x in records for k in x if "loss" in k):
+        raise AssertionError(f"{tag}: non-finite loss in metrics.jsonl")
+    return records
+
+
+def _steady(xs):
+    """Median of the steps after a process's first (its warm-up)."""
+    import numpy as np
+
+    return float(np.median(xs[1:])) if len(xs) > 1 else None
+
+
+def _ddp_lines(ranks, tag: str, wall: float, card):
+    for r in ranks:
+        reduce_ = (f"all-reduce of {r['buffer_mib']:.1f} MiB, ms per step "
+                   f"{_steady(r['all_reduce_ms']):.1f} (first "
+                   f"{r['all_reduce_ms'][0]:.1f}), of it the collective "
+                   f"{_steady(r['collective_ms']):.1f}; wait for the other "
+                   f"ranks {_steady(r['wait_ms']):.1f}"
+                   if r["all_reduce_ms"] else "no all-reduce (one rank)")
+        print(f"[ddp] {tag} rank {r['rank']}/{r['world']} on {r['device']}: "
+              f"{len(r['steps'])} steps, step ms {_steady(r['step_ms']):.1f} "
+              f"(first {r['step_ms'][0]:.1f}); {reduce_} (medians after the "
+              f"first step); peak {r['peak_gib']:.2f} GiB | {card}", flush=True)
+    print(f"[ddp] {tag}: torchrun wall {wall:.1f} s | {card}", flush=True)
+
+
+def ddp_phase(root: Path, card, cli_metrics: Optional[Path] = None):
+    """(a) two gloo ranks (sharing the card where there is one), (b) nccl
+    with one rank per card, both through the CLI under torchrun over the
+    cli phase's tree and reductions; with one card, (b)'s first step is
+    held against the cli phase's (`cli_metrics`, its metrics.jsonl).
+    Returns (results, forward and backward launches summed over the ranks
+    by kernel key)."""
+    import collections
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"[ddp] free device memory before the launches {free / 2 ** 30:.2f} "
+          f"of {total / 2 ** 30:.2f} GiB | {card}", flush=True)
+    t_phase = time.perf_counter()
+    common = ["--cfg", "config/train.yaml", "train.path", str(root),
+              "summary_freq", "1", "train.n_workers", str(DDP_WORKERS),
+              *CLI_REDUCED]
+    steps_gloo = DDP_GLOO_EPOCHS * CLI_TRAIN_STEPS // DDP_GLOO_RANKS
+    gloo, gloo_wall = _torchrun(
+        DDP_GLOO_RANKS, root / "ddp_gloo", ["--dist-backend", "gloo", *common,
+                                            "logdir", str(root / "ddp_gloo" / "run"),
+                                            "train.epochs", str(DDP_GLOO_EPOCHS)],
+        "gloo")
+    _check_ranks(gloo, steps_gloo, root / "ddp_gloo" / "run", DDP_GLOO_EPOCHS,
+                 "gloo")
+    _ddp_lines(gloo, f"gloo, {DDP_GLOO_RANKS} ranks", gloo_wall, card)
+
+    cards = torch.cuda.device_count()
+    per_rank = CLI_TRAIN_STEPS // cards if cards > 1 else CLI_TRAIN_STEPS
+    accumulation = int(CLI_REDUCED[CLI_REDUCED.index(
+        "train.accumulation_steps") + 1])
+    # enough epochs for one optimizer update on every rank
+    epochs_nccl = max(DDP_NCCL_EPOCHS, -(-accumulation // per_rank))
+    nccl, nccl_wall = _torchrun(
+        cards, root / "ddp_nccl", ["--dist-backend", "nccl", *common,
+                                   "logdir", str(root / "ddp_nccl" / "run"),
+                                   "train.epochs", str(epochs_nccl)],
+        "nccl")
+    records = _check_ranks(nccl, epochs_nccl * per_rank,
+                           root / "ddp_nccl" / "run", epochs_nccl, "nccl")
+    first_rel = None
+    if cards == 1 and cli_metrics is not None:
+        # one rank is one stream: its first step is the cli phase's
+        with open(cli_metrics) as f:
+            want = json.loads(f.readline())
+        got = records[0]
+        first_rel = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-12)
+                     for k in want if "loss" in k}
+        if not all(x <= DDP_LOSS_RTOL for x in first_rel.values()):
+            raise AssertionError(f"nccl first step against the cli phase's: "
+                                 f"relative differences {first_rel}")
+        print(f"[ddp] nccl, one card: first step's loss terms against the cli "
+              f"phase's step 1, largest relative difference "
+              f"{max(first_rel.values()):.3g} | {card}", flush=True)
+    _ddp_lines(nccl, f"nccl, {cards} rank(s), one per card", nccl_wall, card)
+
+    fwd, bwd = collections.Counter(), collections.Counter()
+    for r in gloo + nccl:
+        for *key, n in r["launches"]:
+            fwd[tuple(key)] += n
+        for *key, n in r["backward_launches"]:
+            bwd[tuple(key)] += n
+    wall = time.perf_counter() - t_phase
+    print(f"[ddp] phase wall {wall:.1f} s | {card}", flush=True)
+    summary = lambda rs: dict(  # noqa: E731
+        ranks=rs, step_ms=[_steady(r["step_ms"]) for r in rs],
+        all_reduce_ms=[_steady(r["all_reduce_ms"]) for r in rs],
+        collective_ms=[_steady(r["collective_ms"]) for r in rs],
+        peak_gib=[r["peak_gib"] for r in rs])
+    res = dict(free_gib_before=free / 2 ** 30, wall_s=wall,
+               gloo=dict(summary(gloo), wall_s=gloo_wall),
+               nccl=dict(summary(nccl), wall_s=nccl_wall, cards=cards,
+                         first_step_rel_diff=first_rel))
+    return res, dict(fwd), dict(bwd)
+
+
+# --------------------------------------------------------------------------
 # raw-scan writers: the formats of a ScanNet download (.sens, the binary
 # _vh_clean_2.ply, the segs and aggregation json, the label tsv) and the
 # torchvision MNASNet schema, written from the port's synthetic tree for
@@ -1480,6 +1788,34 @@ def import_phase(root: Path, card):
                 served=served, wall_s=wall), launches
 
 
+def ddp_only() -> int:
+    """`chip_smoke.py --ddp-phase`: the ddp phase alone over a fresh tree,
+    for a machine of several cards (nccl across them); the cli phase's
+    first step is not there to compare with."""
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    from eprecon_tpu_torch import kernels
+    from eprecon_tpu_torch.tools.bench_back_project import card_line
+
+    card = card_line()
+    print(f"[card] {card} x {torch.cuda.device_count()}", flush=True)
+    kernels.load("back_project")
+    root = Path(tempfile.mkdtemp(prefix="eprecon_ddp_"))
+    try:
+        write_tree(root, card)
+        res, fwd, bwd = ddp_phase(root, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out_dir = REPO / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_ddp.json").write_text(json.dumps(dict(
+        card=card, cards=torch.cuda.device_count(), ddp=res,
+        launches=[[*k, n] for k, n in fwd.items()],
+        backward_launches=[[*k, n] for k, n in bwd.items()]), indent=1))
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -1493,6 +1829,10 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository "
               "(eprecon_tpu_torch/ not found)", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--ddp-rank"]:  # a rank of the ddp phase
+        return ddp_rank(Path(sys.argv[2]), sys.argv[3:])
+    if sys.argv[1:] == ["--ddp-phase"]:
+        return ddp_only()
     sys.path.insert(0, str(REPO))
     from eprecon_tpu_torch import kernels
     from eprecon_tpu_torch.data.synthetic import make_fragment
@@ -1533,6 +1873,8 @@ def main() -> int:
     root = Path(tempfile.mkdtemp(prefix="eprecon_cli_"))
     try:
         cli_res, cli_fwd, cli_bwd = cli_phase(root, card)
+        ddp_res, ddp_fwd, ddp_bwd = ddp_phase(root, card,
+                                              root / "run" / "metrics.jsonl")
         import_res, import_fwd = import_phase(root, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -1543,10 +1885,15 @@ def main() -> int:
             raise AssertionError(f"{k['name']}: not launched serving the import")
     for k in kern_bwd:
         k["cli_launches"] = int(cli_bwd.get(tuple(k["key"]), 0))
+    for ks, counts in ((kern, ddp_fwd), (kern_bwd, ddp_bwd)):
+        for k in ks:
+            k["ddp_launches"] = int(counts.get(tuple(k["key"]), 0))
     for k in kern + kern_bwd:
         k.pop("key")
         if k["cli_launches"] == 0:
             raise AssertionError(f"{k['name']}: not launched by the CLI")
+        if k["ddp_launches"] == 0:
+            raise AssertionError(f"{k['name']}: not launched by the ddp ranks")
     kern = kern + kern_bwd
     ref = reference_phase(card)
     ref["train"] = train_reference_phase(card)
@@ -1555,7 +1902,8 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, build_s=build_s, ptxas=ptxas, kernels=kern, main_path=main_res,
-        train=train_res, cli=cli_res, import_phase=import_res, reference=ref),
+        train=train_res, cli=cli_res, ddp=ddp_res, import_phase=import_res,
+        reference=ref),
         indent=1))
     print(json.dumps({"kernels": kern}))
     print(card)

@@ -114,15 +114,8 @@ class IntrinsicsPoseToProjection:
         return data
 
 
-def get_view_frustum(max_depth, size, intr, pose):
-    """(reference transforms.py:443-459)"""
-    im_h, im_w = size
-    d = np.array([0, max_depth, max_depth, max_depth, max_depth])
-    xs = (np.array([0, 0, 0, im_w, im_w]) - intr[0, 2]) * d / intr[0, 0]
-    ys = (np.array([0, 0, im_h, 0, im_h]) - intr[1, 2]) * d / intr[1, 1]
-    pts = np.stack([xs, ys, d])
-    pts_h = np.concatenate([pts, np.ones((1, 5))])
-    return (pose @ pts_h)[:3]
+# the view frustum's corners under the JAX package's data/transforms.py name
+get_view_frustum = cam.view_frustum_points
 
 
 class RandomTransformSpace:

@@ -3,6 +3,8 @@ main.py:25-449).
 
   python -m eprecon_tpu_torch.main --cfg config/train.yaml [KEY VALUE ...]
   python -m eprecon_tpu_torch.main --cfg config/test.yaml  [KEY VALUE ...]
+  torchrun --standalone --nproc_per_node N -m eprecon_tpu_torch.main \
+      --cfg config/train.yaml [--dist-backend nccl|gloo] [KEY VALUE ...]
 
 Runs on CUDA (`--device cuda:N` picks a card) and raises where CUDA is
 absent; `--device cpu` runs the plain versions on the CPU. Checkpoints are
@@ -10,21 +12,29 @@ the port's own (`train/checkpoint.py`). `train.n_workers` /
 `test.n_workers` > 0 decode the frames ahead in that many native threads
 (data/prefetch.py); 0 reads them in the loop's thread.
 
+Under torchrun, training is data-parallel (parallel/mesh.py): each rank
+trains its own contiguous shard of the fragments on its own device
+(nccl: `cuda:LOCAL_RANK`; gloo: ranks may share a card, or run on the
+CPU with `--device cpu`), and the step averages over the ranks. Testing
+runs in one process, as the JAX CLI builds no mesh for it.
+
 Departure from the JAX CLI: the learning-rate milestones count optimizer
 updates, so the schedule is given updates per epoch (micro-steps /
-accumulation_steps, unrounded) and each milestone falls within one update
-of its epoch's start, as the reference's MultiStepLR does; the JAX CLI
-gives micro-steps per epoch and drops the rate accumulation_steps times
-late.
+accumulation_steps, unrounded; across ranks the rank's shard length /
+accumulation_steps) and each milestone falls within one update of its
+epoch's start, as the reference's MultiStepLR does; the JAX CLI gives
+micro-steps per epoch and drops the rate accumulation_steps times late.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import os
+from typing import Optional
 
 from eprecon_tpu_torch.config import Config, load_config, parse_cli_overrides
 from eprecon_tpu_torch.device import DeviceLike, resolve_device
+from eprecon_tpu_torch.parallel import mesh
 
 
 def build_dataset(cfg: Config, mode: str, epoch: int = 0,
@@ -63,7 +73,9 @@ def _resolve_auto_extent(cfg: Config, mode: str) -> Config:
     from eprecon_tpu_torch.data.extent import fit_global_extent
 
     ext, margin = fit_global_extent(cfg, mode)
-    print(f"auto global_extent ({mode}): {list(ext)}, origin_margin {margin}")
+    if mesh.is_main_process():
+        print(f"auto global_extent ({mode}): {list(ext)}, "
+              f"origin_margin {margin}")
     return dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, global_extent=ext, origin_margin=margin))
 
@@ -78,47 +90,51 @@ def _make_prefetcher(cfg: Config, dataset, n_workers: int):
     return FragmentPrefetcher(dataset, n_threads=n_workers)
 
 
-def _samples(dataset, prefetcher, indices):
-    if prefetcher is not None:
-        yield from prefetcher.iterate(indices)
-    else:
-        for i in indices:
-            yield dataset[i]
-
-
-def run_train(cfg: Config, device: DeviceLike = None):
-    """Train one scene stream on one card from cfg.train.path; with
-    cfg.resume, from the newest checkpoint in cfg.logdir (fresh where
-    there is none), else from cfg.loadckpt. Returns the Trainer."""
+def run_train(cfg: Config, device: DeviceLike = None,
+              backend: Optional[str] = None):
+    """Train from cfg.train.path; with cfg.resume, from the newest
+    checkpoint in cfg.logdir (fresh where there is none), else from
+    cfg.loadckpt. Returns the Trainer. Under torchrun (WORLD_SIZE > 1)
+    it joins the process group over `backend` (parallel/mesh.py) and,
+    where every rank gets a fragment, trains one contiguous shard per
+    rank; otherwise one scene stream."""
     from eprecon_tpu_torch.data.sampler import ContiguousDistributedSampler
     from eprecon_tpu_torch.models.eprecon import EPRecon
     from eprecon_tpu_torch.train import checkpoint as ckpt
-    from eprecon_tpu_torch.train.loop import train_epochs
+    from eprecon_tpu_torch.train.loop import (iterate_samples, train_epochs,
+                                              train_epochs_sharded)
     from eprecon_tpu_torch.train.state import Trainer
 
-    device = resolve_device(device)
+    device = mesh.initialize_distributed(backend, device)
+    world = mesh.world_size()
     cfg = _resolve_auto_extent(cfg, "train")
     dataset = build_dataset(cfg, "train", device=device)
-    # optimizer updates per epoch: the schedule counts updates
-    updates_per_epoch = max(len(dataset), 1) / cfg.train.accumulation_steps
+    sharded = world > 1 and len(dataset) >= world
+    # optimizer updates per epoch: the schedule counts updates, and each
+    # rank takes len(dataset) // world micro-steps an epoch
+    per_stream = len(dataset) // world if sharded else len(dataset)
+    updates_per_epoch = max(per_stream, 1) / cfg.train.accumulation_steps
     trainer = Trainer(cfg, EPRecon(cfg.model, seed=cfg.seed), device,
                       updates_per_epoch)
     if cfg.resume:
         latest = ckpt.latest_checkpoint(cfg.logdir)
         if latest:
             ckpt.restore_checkpoint(latest, trainer)
-            print(f"resumed from {latest} at epoch {trainer.epoch}, "
-                  f"step {trainer.step_count}")
+            if mesh.is_main_process():
+                print(f"resumed from {latest} at epoch {trainer.epoch}, "
+                      f"step {trainer.step_count}")
     elif cfg.loadckpt:
         ckpt.restore_checkpoint(cfg.loadckpt, trainer)
-    sampler = ContiguousDistributedSampler(len(dataset), 1, 0)
     prefetcher = _make_prefetcher(cfg, dataset, cfg.train.n_workers)
-
-    def iter_epoch(epoch):
-        dataset.epoch = epoch
-        yield from _samples(dataset, prefetcher, list(sampler))
-
     try:
+        if sharded:
+            return train_epochs_sharded(cfg, trainer, dataset, prefetcher)
+        sampler = ContiguousDistributedSampler(len(dataset), 1, 0)
+
+        def iter_epoch(epoch):
+            dataset.epoch = epoch
+            yield from iterate_samples(dataset, prefetcher, list(sampler))
+
         return train_epochs(cfg, trainer, iter_epoch)
     finally:
         if prefetcher is not None:
@@ -134,8 +150,11 @@ def run_test(cfg: Config, device: DeviceLike = None):
     from eprecon_tpu_torch.inference.pipeline import StreamingReconstructor
     from eprecon_tpu_torch.models.eprecon import EPRecon
     from eprecon_tpu_torch.train import checkpoint as ckpt
-    from eprecon_tpu_torch.train.loop import evaluate
+    from eprecon_tpu_torch.train.loop import evaluate, iterate_samples
 
+    if mesh.env_world_size() > 1:
+        raise RuntimeError("the test split runs in one process: launch "
+                           "config/test.yaml without torchrun")
     device = resolve_device(device)
     cfg = _resolve_auto_extent(cfg, "test")
     dataset = build_dataset(cfg, "test", device=device)
@@ -148,7 +167,8 @@ def run_test(cfg: Config, device: DeviceLike = None):
     prefetcher = _make_prefetcher(cfg, dataset, cfg.test.n_workers)
     try:
         results = evaluate(cfg, recon,
-                           _samples(dataset, prefetcher, range(len(dataset))),
+                           iterate_samples(dataset, prefetcher,
+                                           range(len(dataset))),
                            out_dir=out_dir,
                            gt_dir=gt_dir if os.path.isdir(gt_dir) else None)
     finally:
@@ -171,14 +191,20 @@ def main(argv=None):
     ap.add_argument("--cfg", required=True)
     ap.add_argument("--device", default=None,
                     help="torch device (default: CUDA, which must exist)")
+    ap.add_argument("--dist-backend", choices=mesh.BACKENDS, default=None,
+                    help="process-group backend under torchrun (default: "
+                         "nccl on CUDA, gloo on the CPU)")
     ap.add_argument("opts", nargs=argparse.REMAINDER,
                     help="KEY VALUE config overrides")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     cfg = load_config(args.cfg, parse_cli_overrides(args.opts))
-    if cfg.mode == "train":
-        return run_train(cfg, device)
-    return run_test(cfg, device)
+    if cfg.mode != "train":
+        return run_test(cfg, device)
+    try:
+        return run_train(cfg, device, args.dist_backend)
+    finally:
+        mesh.shutdown_distributed()
 
 
 if __name__ == "__main__":

@@ -107,6 +107,19 @@ class Linear4xTrans(nn.Module):
         return out2 + out if self.residual else out2
 
 
+class LinearResidual(nn.Module):
+    """Dense + ReLU + residual + LayerNorm, in f32 (reference
+    models/modules.py:454-467)."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.Dense_0 = Dense(c, c)
+        self.LayerNorm_0 = LayerNorm(c)
+
+    def forward(self, x):
+        return self.LayerNorm_0(x + F.relu(self.Dense_0(x)))
+
+
 class MLP(nn.Module):
     """Plain ReLU MLP (reference models/mask3dformer.py:187-199)."""
 

@@ -25,6 +25,31 @@ NEG_INF = -1e9
 BF16 = torch.bfloat16
 
 
+def nearest_fine_index(coords_p: torch.Tensor, valid_p: torch.Tensor,
+                       coords_fine: torch.Tensor, valid_fine: torch.Tensor,
+                       chunk: int = 2048) -> torch.Tensor:
+    """For each level-p voxel, the row of the nearest valid fine voxel (0
+    where the level voxel is not valid): the reference's torch.cdist +
+    argmin (mask3dformer.py:359-367), streamed over chunks of fine voxels
+    so that the [K_p, K_fine] distances never exist at once; distances as
+    |a|^2 + |b|^2 - 2ab, ties to the lowest row. The forward finds the
+    same rows in O(1) per voxel (eprecon.nearest_fine_in_cell)."""
+    a = coords_p.float()
+    b = coords_fine.float()
+    a_sq = (a * a).sum(1, keepdim=True)
+    best_d = torch.full((a.shape[0],), float("inf"), device=a.device)
+    best_i = torch.zeros(a.shape[0], dtype=torch.int32, device=a.device)
+    for base in range(0, b.shape[0], chunk):
+        bc, vc = b[base:base + chunk], valid_fine[base:base + chunk]
+        d = a_sq + (bc * bc).sum(1)[None, :] - 2.0 * (a @ bc.T)
+        d = torch.where(vc[None, :], d, float("inf"))
+        cd, ci = d.min(dim=1)
+        upd = cd < best_d
+        best_d = torch.where(upd, cd, best_d)
+        best_i = torch.where(upd, ci.to(torch.int32) + base, best_i)
+    return torch.where(valid_p, best_i, 0)
+
+
 class MultiHeadAttention(nn.Module):
     """Multi-head attention with boolean masks, True = do not attend
     (reference mask3dformer.py:12-130)."""

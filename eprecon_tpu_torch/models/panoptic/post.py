@@ -1,6 +1,6 @@
 """Panoptic inference post-processing (port of
-eprecon_tpu/models/panoptic/post.py:32; reference models/mask3dformer.py:
-516-581).
+eprecon_tpu/models/panoptic/post.py:32-135; reference models/
+mask3dformer.py:506-625).
 
 Segment tables are static, sized [Q+1]: segment id s in 1..Q, with
 seg_class / seg_isthing / seg_valid indexed by s; slot 0 means "none".
@@ -87,3 +87,38 @@ def panoptic_inference(mask_cls: torch.Tensor, mask_pred: torch.Tensor,
     seg_valid[0] = False
     voxel_seg = torch.where(keep.any(), voxel_seg, 0)
     return PanopticSeg(voxel_seg, seg_class, seg_isthing, seg_valid)
+
+
+def semantic_inference(mask_cls: torch.Tensor,
+                       mask_pred: torch.Tensor) -> torch.Tensor:
+    """[Q, nc+1] class logits x [Q, K] mask logits -> [nc, K] per-class
+    scores (reference mask3dformer.py:506-510)."""
+    probs = torch.softmax(mask_cls, dim=-1)[:, 1:]
+    return torch.einsum("qc,qk->ck", probs, torch.sigmoid(mask_pred))
+
+
+class InstancePreds(NamedTuple):
+    pred_masks: torch.Tensor    # bool [N, K]
+    scores: torch.Tensor        # f32 [N]
+    pred_classes: torch.Tensor  # int32 [N]
+    valid: torch.Tensor         # bool [N]
+
+
+def instance_inference(mask_cls: torch.Tensor, mask_pred: torch.Tensor,
+                       voxel_valid: torch.Tensor, num_classes: int = 20,
+                       panoptic_on: bool = True) -> InstancePreds:
+    """The Q/2 best (query, class) pairs as instances, each scored by its
+    class probability times its mask's mean probability over its voxels;
+    with `panoptic_on`, only thing classes are valid (reference
+    mask3dformer.py:583-625)."""
+    q = mask_pred.shape[0]
+    scores = torch.softmax(mask_cls, dim=-1)[:, 1:]
+    vals, idx = torch.topk(scores.reshape(-1), q // 2)
+    labels = (idx % num_classes + 1).to(torch.int32)
+    masks = mask_pred[idx // num_classes]
+    keep = (labels >= THING_ID_START if panoptic_on
+            else torch.ones_like(labels, dtype=torch.bool))
+    bin_masks = (masks > 0) & voxel_valid[None, :]
+    mask_probs = torch.sigmoid(masks) * bin_masks
+    mask_score = mask_probs.sum(1) / (bin_masks.sum(1) + 1e-6)
+    return InstancePreds(bin_masks, vals * mask_score, labels, keep)

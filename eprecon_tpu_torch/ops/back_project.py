@@ -9,6 +9,9 @@ Two public functions, each with a plain PyTorch version and a CUDA kernel
 (csrc/back_project.cu), forward and backward:
   * back_project_window   — mean over visible views on a dense window
   * back_project_variance — cross-view variance on a coordinate list
+and two plain helpers on a coordinate list, off the model's path (the
+JAX package computes them with XLA): `project_to_views` and
+`back_project_mean`.
 
 Both are torch.autograd.Functions whose backward gives the features'
 gradient (the counterpart of the JAX package's gather adjoints). A tensor
@@ -145,19 +148,36 @@ def window_backward_plain(dim, interval, origin, voxel_size, proj, count, ct,
     return grad
 
 
-def _variance_views(coords, valid, origin, voxel_size, feats, proj):
-    """Per view: (u, v, visible mask, bilinear sample [K, C] f32), with the
-    table rows' batch offsets; shared by the variance and its backward."""
-    vv, bb, h, w, c = feats.shape
+def project_to_views(coords: torch.Tensor, valid: torch.Tensor,
+                     origin: torch.Tensor, voxel_size: float,
+                     proj: torch.Tensor, h: int, w: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Project a coordinate list into every view: coords int [K, 4]
+    (b, x, y, z) in voxels, valid bool [K], origin [B, 3], proj
+    [V, B, 4, 4] world->pixel. Returns (uv [V, K, 2], mask [V, K]: in the
+    frustum and valid; reference occupancy_initialization.py:87-102)."""
     b = coords[:, 0].long()
     world = coords[:, 1:].float() * voxel_size + origin.float()[b]
-    table = feats.reshape(vv, bb * h * w, c)
-    row_offset = b * (h * w)
-    for vi in range(vv):
+    uv, mask = [], []
+    for vi in range(proj.shape[0]):
         u, v, m = project_to_view(world, proj[vi].float()[b], h, w)
-        m = m & valid
-        yield u, v, m, bilinear_sample_flat(table[vi], row_offset, u, v, m,
-                                            h, w), row_offset
+        uv.append(torch.stack([u, v], dim=-1))
+        mask.append(m & valid)
+    return torch.stack(uv), torch.stack(mask)
+
+
+def _variance_views(coords, valid, origin, voxel_size, feats, proj):
+    """Per view: (u, v, visible mask, bilinear sample [K, C] f32), with the
+    table rows' batch offsets; shared by the variance, its backward and
+    the coordinate-list mean."""
+    vv, bb, h, w, c = feats.shape
+    uv, mask = project_to_views(coords, valid, origin, voxel_size, proj, h, w)
+    table = feats.reshape(vv, bb * h * w, c)
+    row_offset = coords[:, 0].long() * (h * w)
+    for vi in range(vv):
+        u, v = uv[vi].unbind(-1)
+        yield u, v, mask[vi], bilinear_sample_flat(
+            table[vi], row_offset, u, v, mask[vi], h, w), row_offset
 
 
 def _variance_sums(coords, valid, origin, voxel_size, feats, proj):
@@ -171,6 +191,23 @@ def _variance_sums(coords, valid, origin, voxel_size, feats, proj):
         s2 = s2 + s * s
         count = count + m.float()
     return s1, s2, count
+
+
+def back_project_mean(coords: torch.Tensor, valid: torch.Tensor,
+                      origin: torch.Tensor, voxel_size: float,
+                      feats: torch.Tensor, proj: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean of the visible views' bilinear samples per voxel of a
+    coordinate list (reference Back_Project, occupancy_initialization.py:
+    189-261): feats [V, B, H, W, C] -> (mean [K, C] in feats' dtype,
+    visible views [K] f32)."""
+    total = torch.zeros(coords.shape[0], feats.shape[-1], device=feats.device)
+    count = torch.zeros(coords.shape[0], device=feats.device)
+    for _, _, m, s, _ in _variance_views(coords, valid, origin, voxel_size,
+                                         feats, proj):
+        total = total + s
+        count = count + m.float()
+    return (total / count.clamp(min=1.0)[:, None]).to(feats.dtype), count
 
 
 def back_project_variance_plain(coords, valid, origin, voxel_size, feats, proj):

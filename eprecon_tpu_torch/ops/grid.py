@@ -1,10 +1,28 @@
-"""Voxel grid coordinate helpers (port of eprecon_tpu/ops/grid.py:30-83)."""
+"""Voxel grid coordinate helpers (port of eprecon_tpu/ops/grid.py;
+reference: ops/generate_grids.py:3-10, utils.py:138-153)."""
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
+
+
+def generate_grid(n_vox: Sequence[int], interval: int, device=None
+                  ) -> Tuple[torch.Tensor, Tuple[int, int, int]]:
+    """Every `interval`-th voxel coordinate of an n_vox grid: (coords
+    [3, N] f32 in 'ij' meshgrid order, the grid's shape) (reference
+    ops/generate_grids.py:3-10)."""
+    axes = [torch.arange(0, n, interval, dtype=torch.float32, device=device)
+            for n in n_vox]
+    grid = torch.stack(torch.meshgrid(*axes, indexing="ij"))
+    return grid.reshape(3, -1), tuple(len(a) for a in axes)
+
+
+def coordinates(voxel_dim: Sequence[int], device=None) -> torch.Tensor:
+    """Dense integer coordinates [3, nx*ny*nz] int32, 'ij' order
+    (reference utils.py:138-153)."""
+    return dense_coords(voxel_dim, device).reshape(-1, 3).T
 
 
 def dense_coords(shape: Sequence[int], device=None) -> torch.Tensor:

@@ -2,7 +2,8 @@
 :24-78; reference main.py:186-219, 343-348): model, optimizer state, step
 and epoch under the reference's `model_%06d` names, with torch.save and
 torch.load(weights_only=True). The JAX package's orbax checkpoints are not
-read; carry flax trees over with convert.variables_to_torch.
+read; carry flax trees over with convert.variables_to_torch. Across ranks
+rank 0 writes and every rank restores onto its own device.
 """
 from __future__ import annotations
 
@@ -13,16 +14,21 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
+from eprecon_tpu_torch.parallel import mesh
 from eprecon_tpu_torch.train.state import Trainer
 
 
 def save_checkpoint(logdir: str, epoch: int, trainer: Trainer) -> str:
-    """Save under <logdir>/model_<epoch:06d>; returns the path."""
-    os.makedirs(logdir, exist_ok=True)
+    """Save under <logdir>/model_<epoch:06d>; returns the path. Across
+    ranks, rank 0 writes (every rank holds the same state) and then all
+    ranks meet at a barrier, so none reads the file before it exists."""
     path = os.path.join(logdir, f"model_{epoch:06d}")
-    tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save(trainer.state_dict(), tmp)
-    os.replace(tmp, path)
+    if mesh.is_main_process():
+        os.makedirs(logdir, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        torch.save(trainer.state_dict(), tmp)
+        os.replace(tmp, path)
+    mesh.synchronize()
     return path
 
 

@@ -1,14 +1,16 @@
 """Training and evaluation loops (port of eprecon_tpu/train/loop.py
-:26-168,175-192,279-377; reference main.py:183-348, the train epoch loop
-with loss logging, checkpointing, LR schedule and accumulation, and
-:351-411, the streaming test loop with mesh saving).
+:26-377; reference main.py:183-348, the train epoch loop with loss
+logging, checkpointing, LR schedule and accumulation, and :351-411, the
+streaming test loop with mesh saving).
 
-One scene stream on one card: the loop drives a `Trainer`, carries the
+One scene stream per rank: the loop drives a `Trainer`, carries the
 recurrent state across a scene's fragments and resets it when the
 (scene, epoch) pair changes. Metrics stay on the device: they are summed
 there and read back once per `summary_freq` steps and once per epoch, so
-no per-step read-back holds the host while the card works. The sharded
-loop (one stream per card) is not ported yet.
+no per-step read-back holds the host while the card works. Across ranks
+(`train_epochs_sharded`, parallel/mesh.py) each rank runs the same loop
+over its own contiguous shard; the step averages the metrics, so every
+rank's means are the means over all streams.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import torch
 
 from eprecon_tpu_torch.config import Config
 from eprecon_tpu_torch.models.eprecon import FragmentInputs, FragmentTargets
+from eprecon_tpu_torch.parallel import mesh
 from eprecon_tpu_torch.train import checkpoint as ckpt
 from eprecon_tpu_torch.train.state import Trainer
 
@@ -146,18 +149,28 @@ def train_epochs(cfg: Config, trainer: Trainer,
                  dataset_iter_fn: Callable[[int], Iterable[dict]],
                  epochs: Optional[int] = None,
                  log_fn: Callable[[str], None] = print) -> Trainer:
-    """Single-stream training loop from `trainer.epoch` to `epochs`
-    (default cfg.train.epochs), checkpointing every `save_freq` epochs.
+    """Training loop of this rank's stream from `trainer.epoch` to
+    `epochs` (default cfg.train.epochs), checkpointing every `save_freq`
+    epochs.
 
     Every `summary_freq` micro-steps the loop reads the window's metric
     means back in one transfer, logs them and writes them to
     <logdir>/metrics.jsonl with `step_ms` (wall time per micro-step of the
     loop, the sample included) and `sample_ms` (the part spent obtaining
     the sample: read, transforms, GT fusion); the epoch's means are logged
-    at its end."""
+    at its end.
+
+    Across ranks every rank must yield as many samples per epoch (equal
+    shards): the stop file and the RSS limit are or-ed over the ranks
+    before each step, so all stop at the same step; rank 0 alone logs and
+    writes summaries, and checkpoints through rank 0. With one rank the
+    agreements are the local checks."""
     from eprecon_tpu_torch.utils.logging import SummaryWriter
 
-    writer = SummaryWriter(cfg.logdir)
+    main = mesh.is_main_process()
+    writer = SummaryWriter(cfg.logdir) if main else None
+    if not main:
+        log_fn = lambda _: None  # noqa: E731
     epochs = epochs or cfg.train.epochs
     rec, scene = None, None
     global_origin = np.zeros(3, np.float32)
@@ -173,12 +186,14 @@ def train_epochs(cfg: Config, trainer: Trainer,
                 t_data = time.perf_counter()
                 if data is None:
                     break
-                if _stop_requested():
+                stop, rss_over = mesh.any_rank(_stop_requested(),
+                                               _rss_restart_due())
+                if stop:
                     log_fn(f"stop file present - checkpointing at step "
                            f"{trainer.step_count} and exiting")
                     ckpt.save_checkpoint(cfg.logdir, epoch, trainer)
                     return trainer
-                if _rss_restart_due():
+                if rss_over:
                     log_fn(f"host RSS {_rss_gb():.1f} GB over "
                            f"EPRECON_MAX_RSS_GB - checkpointing at step "
                            f"{trainer.step_count} and exiting "
@@ -201,7 +216,7 @@ def train_epochs(cfg: Config, trainer: Trainer,
                 win_step_s += now - t_prev
                 win_sample_s += t_data - t_prev
                 t_prev = now
-                if trainer.step_count % cfg.summary_freq == 0:
+                if trainer.step_count % cfg.summary_freq == 0 and main:
                     means = window.mean()
                     timing = {"step_ms": 1e3 * win_step_s / window.count,
                               "sample_ms": 1e3 * win_sample_s / window.count}
@@ -212,7 +227,7 @@ def train_epochs(cfg: Config, trainer: Trainer,
                            f"sample_ms={timing['sample_ms']:.1f}")
                     window = MetricsMeter()
                     win_step_s = win_sample_s = 0.0
-            means = meter.mean()
+            means = meter.mean() if main else {}
             if means.get("overflow", 0.0) > 0:
                 log_fn(f"WARNING: mean voxel-capacity overflow "
                        f"{means['overflow']:.0f}/step - raise "
@@ -223,8 +238,48 @@ def train_epochs(cfg: Config, trainer: Trainer,
             if (epoch + 1) % cfg.save_freq == 0:
                 ckpt.save_checkpoint(cfg.logdir, epoch, trainer)
     finally:
-        writer.close()
+        if writer is not None:
+            writer.close()
     return trainer
+
+
+def iterate_samples(dataset, prefetcher, indices: Iterable[int]):
+    """dataset[i] for each index, decoded ahead through `prefetcher`
+    (data/prefetch.py) where one is given."""
+    if prefetcher is not None:
+        yield from prefetcher.iterate(list(indices))
+    else:
+        for i in indices:
+            yield dataset[i]
+
+
+def train_epochs_sharded(cfg: Config, trainer: Trainer, dataset,
+                         prefetcher=None, epochs: Optional[int] = None,
+                         log_fn: Callable[[str], None] = print) -> Trainer:
+    """Data-parallel training loop (port of eprecon_tpu/train/loop.py
+    :195-276; reference datasets/sampler.py:56-76): this rank consumes
+    contiguous shard `rank` of `world` (parallel/mesh.py), scene-shuffled
+    per epoch where cfg.train.shuffle is set and the dataset names each
+    fragment's scene, through `prefetcher` where one is given, with its
+    own recurrent state and scene origin; the loop is `train_epochs`, and
+    `trainer`'s step averages over the ranks. One rank is one stream over
+    the whole dataset."""
+    from eprecon_tpu_torch.data.sampler import ContiguousDistributedSampler
+
+    scene_ids = ([f.get("scene") for f in dataset.fragments]
+                 if cfg.train.shuffle and hasattr(dataset, "fragments")
+                 else None)
+    sampler = ContiguousDistributedSampler(
+        len(dataset), mesh.world_size(), mesh.rank(),
+        shuffle=cfg.train.shuffle and scene_ids is not None,
+        seed=cfg.seed, scene_ids=scene_ids)
+
+    def iter_epoch(epoch):
+        dataset.epoch = epoch
+        sampler.set_epoch(epoch)
+        yield from iterate_samples(dataset, prefetcher, list(sampler))
+
+    return train_epochs(cfg, trainer, iter_epoch, epochs, log_fn)
 
 
 def evaluate(cfg: Config, reconstructor, dataset_iter: Iterable[dict],

@@ -8,8 +8,14 @@ The optimizer is optax's chain written out: clip_by_global_norm, then
 adam with a piecewise-constant schedule, under MultiSteps (the running
 mean of k micro-steps' gradients, one update every k micro-steps; the
 schedule counts updates). Frozen parameters take no update, which is what
-zeroing their gradients before the optax chain gives. The sharded
-multi-card step is a later slice; the epoch loop is train/loop.py.
+zeroing their gradients before the optax chain gives.
+
+Across ranks (parallel/mesh.py, torchrun) the step is the JAX package's
+sharded step (eprecon_tpu/train/state.py:171-205): each rank differentiates
+its own fragment, then one all-reduce averages the gradients, the metrics
+and the BatchNorm running statistics, as its `pmean`s do, and every rank
+applies the same optimizer to the same mean. The epoch loop is
+train/loop.py.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ from eprecon_tpu_torch.device import DeviceLike, resolve_device
 from eprecon_tpu_torch.models.eprecon import (EPRecon, FragmentInputs,
                                               FragmentTargets, RecurrentState,
                                               make_recurrent_state)
+from eprecon_tpu_torch.parallel import mesh
 
 # parameter-name prefixes frozen by `finetune_layer` (reference main.py:221-230)
 FROZEN_PREFIXES = {"init": ("backbone2d", "neucon_net.initialization")}
@@ -140,11 +147,21 @@ def fragment_tensors(d: Mapping[str, np.ndarray], rel_origins: np.ndarray,
 
 
 class Trainer:
-    """The training step of one scene stream on one card: forward with
-    targets, backward, optimizer, each in a profiler range (train::forward,
+    """The training step of one scene stream: forward with targets,
+    backward, optimizer, each in a profiler range (train::forward,
     train::backward, train::optimizer; tools/profile_fragment.py --train
     reads them). Batch-statistics BatchNorm updates its running statistics
-    on every micro-step, as the JAX step's `batch_stats` do."""
+    on every micro-step, as the JAX step's `batch_stats` do.
+
+    In a process group of more than one rank, each rank steps on its own
+    stream: rank 0's parameters and buffers are broadcast at construction,
+    and every micro-step averages over the ranks, in one all-reduce
+    (train::all_reduce), the trainable parameters' gradients (a None
+    gradient is zero), the metrics and the running statistics. Frozen
+    parameters take part in no collective. DistributedDataParallel would
+    not do: the step differentiates named parameters with
+    torch.autograd.grad, some get no gradient, and DDP averages no
+    buffers."""
 
     def __init__(self, cfg: Config, model: EPRecon, device: DeviceLike = None,
                  steps_per_epoch: float = 1000):
@@ -158,6 +175,14 @@ class Trainer:
                                    frozen_names(params, cfg.train.finetune_layer))
         self.step_count = 0  # micro-steps taken
         self.epoch = 0
+        # BatchNorm's and MaskedBatchNorm's running statistics, averaged
+        # over the ranks as the JAX step's pmean of `batch_stats`
+        self.running_stats = [b for n, b in self.model.named_buffers()
+                              if n.endswith((".running_mean", ".running_var"))]
+        self.distributed = mesh.world_size() > 1
+        if self.distributed:
+            mesh.broadcast_from_main([*self.model.parameters(),
+                                      *self.model.buffers()])
 
     def recurrent_state(self) -> RecurrentState:
         """A fresh recurrent state for a new scene stream."""
@@ -174,20 +199,37 @@ class Trainer:
                 torch.as_tensor(imgs, device=self.device), frag, rec, targets,
                 only_train_init=self.cfg.train.only_init)
         names = list(self.optimizer.params)
+        params = [self.optimizer.params[n] for n in names]
         with record_function("train::backward"):
-            grads = torch.autograd.grad(
-                losses["total_loss"], [self.optimizer.params[n] for n in names],
-                allow_unused=True)
-        with record_function("train::optimizer"):
-            self.optimizer.step(dict(zip(names, grads)))
-        self.step_count += 1
+            grads = torch.autograd.grad(losses["total_loss"], params,
+                                        allow_unused=True)
         metrics = {k: v.detach() for k, v in losses.items()}
         dev = self.device
         metrics["overflow"] = torch.as_tensor(
             outputs.get("overflow", 0), device=dev).float()
         metrics["frag_ok"] = torch.as_tensor(
             outputs.get("frag_ok", True), device=dev).float()
+        if self.distributed:
+            with record_function("train::all_reduce"):
+                grads, metrics = self._average(grads, params, metrics)
+        with record_function("train::optimizer"):
+            self.optimizer.step(dict(zip(names, grads)))
+        self.step_count += 1
         return new_rec, metrics
+
+    def _average(self, grads, params, metrics):
+        """The mean over the ranks of the gradients (None as zero, so
+        every rank's buffer has one layout), the metrics and the running
+        statistics, in one all-reduce; the statistics are written back."""
+        grads = [torch.zeros_like(p) if g is None else g
+                 for g, p in zip(grads, params)]
+        n_g, n_m = len(grads), len(metrics)
+        out = mesh.all_reduce_mean([*grads, *metrics.values(),
+                                    *self.running_stats])
+        with torch.no_grad():
+            for stat, mean in zip(self.running_stats, out[n_g + n_m:]):
+                stat.copy_(mean)
+        return out[:n_g], dict(zip(metrics, out[n_g:n_g + n_m]))
 
     def state_dict(self) -> dict:
         return dict(model=self.model.state_dict(),

@@ -4,7 +4,7 @@ Reference: main.py:84-93 (loguru file+console logging, rank-0 only;
 tensorboardX SummaryWriter) and utils.py:83-93 (save_scalars). Here:
 stdlib logging, and scalar summaries to `metrics.jsonl` always, and to
 tensorboard events where torch.utils.tensorboard imports. One process
-writes (the sharded loop is not ported yet).
+writes: across ranks the training loop opens a writer on rank 0 only.
 """
 from __future__ import annotations
 

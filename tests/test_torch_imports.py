@@ -42,6 +42,31 @@ def test_port_imports_without_jax():
     assert int(out.stdout.split()[-1]) >= 20
 
 
+def test_parallel_package_imports_without_jax():
+    """eprecon_tpu_torch.parallel (the process group of data-parallel
+    training) imports with JAX blocked, joins no group and starts no
+    process when imported, and outside torchrun is one rank on the device
+    asked for."""
+    code = (
+        "import sys\n"
+        f"for name in {BLOCKED!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import torch.distributed as dist\n"
+        "from eprecon_tpu_torch.parallel import mesh\n"
+        "from eprecon_tpu_torch.train import loop, state\n"
+        "assert not dist.is_initialized()\n"
+        "dev = mesh.initialize_distributed('gloo', 'cpu')\n"
+        "assert not dist.is_initialized()\n"
+        "print(dev, mesh.world_size(), mesh.rank(), mesh.is_main_process())\n")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK")}
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["cpu", "1", "0", "True"]
+
+
 def test_port_imports_without_yaml_or_image_decoders():
     """Every module of eprecon_tpu_torch imports with yaml, cv2, PIL and
     skimage made unimportable (a GPU host need not have them), and
