@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --ddp-phase    # the ddp phase alone (several cards)
+    python3 chip_smoke.py --serve-artifact ARTIFACT REQUESTS RESULTS
+                                         # the export phase's model-free server
 
 Phases (any failure exits non-zero before the result line):
   1. build csrc/back_project.cu (forward and backward kernels) for sm_90a
@@ -32,6 +34,25 @@ Phases (any failure exits non-zero before the result line):
      (96^3 window at 4 cm, 9 views at 640x480, 80-query 6-layer decoder),
      random weights from a seed, 3 fragments of one scene then 1 of a
      second (scene flush); the kernel must launch 4 times per fragment;
+  4a. export (inference/export.py): the fragment program exported on the
+     card and saved; a process that refuses eprecon_tpu_torch.models
+     (--serve-artifact) loads it and serves phase 4's fragments, which
+     must equal the live path (tsdf_window 1e-5, pred_logits 1e-4, the
+     panoptic maps at each scene's end exactly), then seed-2 weights
+     swapped into it must equal the live path on them; an artifact
+     exported on the CPU, moved to the card at load, serves fragment 0
+     (4 kernel launches, equal to the live path). Prints [export]: export,
+     save and load s, artifact MB, p50 ms per fragment and peak GiB
+     against the live path's;
+  4b. the sparse research engine (models/spvcnn.py) on the first served
+     fragment's fused voxels per stage (at most 131,072 points): SPVCNN at
+     the reference's three stage configurations (cr 1, 1/2, 1/4 at 16, 8,
+     4 cm, 80 / 138 / 74 input channels) and ConvGRU at the fine stage,
+     build_plan and forward timed (median of 5 after a warm-up, the card
+     synchronised), peak GiB, and held against the port's own CPU run on
+     an 8,192-point cut (plans equal, outputs within 1e-4 of scale); the
+     stage-2 dense U-Net's time on its served input beside them.
+     Prints [spvcnn];
   5. train at full width: Trainer at the default config with the port's
      own GT fragments (one scene stream threading the recurrent state),
      random weights from the seed, 6 micro-steps = 3 optimizer updates.
@@ -119,7 +140,8 @@ Phases (any failure exits non-zero before the result line):
      JAX package by tests/test_torch_forward.py and test_torch_train.py).
 Prints ptxas's registers and spills per kernel instance, the card's name
 and power limit, a JSON line of kernel results (`launches` from the
-serving path, `train_launches` from the training phase, `cli_launches`
+serving path, `export_launches` from the export phase's serving process,
+`train_launches` from the training phase, `cli_launches`
 from the CLI phase, `ddp_launches` summed over the ddp phase's ranks,
 `import_launches` from serving the imported checkpoint), and as the last
 line {"ok": true, "device": {...}}.
@@ -127,6 +149,7 @@ Full results also go to chip_smoke.json in the output directory beside
 the script.
 """
 import ast
+import collections
 import contextlib
 import dataclasses
 import hashlib
@@ -290,7 +313,12 @@ def backward_phase(case_list, v, card):
 
 
 def main_path_phase(card):
-    """Serve 3 fragments of scene 'a' and 1 of scene 'b' at full width."""
+    """Serve 3 fragments of scene 'a' and 1 of scene 'b' at full width.
+    Returns (results, launches, served): `served` keeps, on the host, what
+    the export and spvcnn phases hold against: each fragment's program
+    inputs and outputs, the panoptic map at each scene's end, the first
+    fragment's fused voxels per stage and stage-2 U-Net input, and the
+    model."""
     import numpy as np
     import torch
     from eprecon_tpu_torch.config import default_config
@@ -307,10 +335,23 @@ def main_path_phase(card):
     frags.append(("b", make_fragment(n_vox=m.n_vox, voxel_size=m.voxel_size,
                                      scene=scene_b, start_angle=0.3)))
     rec = StreamingReconstructor(cfg, EPRecon(m, seed=cfg.seed))  # device: CUDA
+    # on the first (warm-up) fragment: the stage-2 U-Net's input and each
+    # stage's fused voxel set (the GRU fusion's union mask)
+    unet_args, stage_voxels = [], []
+    core = rec.model.neucon_net
+    hooks = [core.sp_conv_2.register_forward_pre_hook(
+        lambda mod, args: unet_args.append([a.detach().cpu() for a in args])
+        if not unet_args else None)]
+    for i in range(m.n_layer):
+        hooks.append(getattr(core, f"gru_fusion_{i}").register_forward_hook(
+            lambda mod, args, out: stage_voxels.append(out[1].nonzero().cpu())
+            if len(stage_voxels) < m.n_layer else None))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     bp.launch_counts.clear()
     per_frag, map_sizes, finished = [], [], None
+    served = dict(cfg=cfg, model=rec.model, fragments=[], outputs=[],
+                  snapshots=[])
     for i, (scene, d) in enumerate(frags):
         before = bp.total_launches()
         t0 = time.perf_counter()
@@ -333,8 +374,24 @@ def main_path_phase(card):
             raise AssertionError(f"fragment {i}: non-finite panoptic tsdf")
         per_frag.append(ms)
         map_sizes.append(sizes)
+        # what the artifact must reproduce (copied after the clock)
+        imgs_t, frag = rec.last_inputs
+        last_of_scene = i + 1 == len(frags) or frags[i + 1][0] != scene
+        served["fragments"].append(dict(
+            imgs=imgs_t.cpu(), **{k: v.cpu() for k, v in frag._asdict().items()},
+            reset=i == 0 or frags[i - 1][0] != scene, snapshot=last_of_scene))
+        served["outputs"].append({k: rec.last_outputs[k].cpu()
+                                  for k in ("tsdf_window", "pred_logits")})
+        if last_of_scene:
+            served["snapshots"].append({"instance": rec.pmap_state.instance.cpu(),
+                                        "semantic": rec.pmap_state.semantic.cpu()})
+        if i == 0:
+            served["origin"] = frag.vol_origin_partial.cpu()
         print(f"[main] fragment {i} scene={scene} ms={ms:.1f} "
               f"global-map voxels per level={sizes} | {card}", flush=True)
+    for h in hooks:
+        h.remove()
+    served.update(unet_args=unet_args[0], stage_voxels=stage_voxels)
     launches = dict(bp.launch_counts)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     # state threads: scene 'a' maps grow, scene 'b' starts from a reset
@@ -349,9 +406,311 @@ def main_path_phase(card):
         raise AssertionError("flushed scene a has no finite surface")
     print(f"[main] peak memory {peak:.2f} GiB; flushed scene a "
           f"{finished.tsdf.shape} | {card}", flush=True)
+    served.update(ms=per_frag, peak_gib=peak)
     return dict(fragment_ms=per_frag, peak_gib=peak, map_sizes=map_sizes,
                 launches={str(k): n for k, n in launches.items()},
-                flushed_shape=list(finished.tsdf.shape)), launches
+                flushed_shape=list(finished.tsdf.shape)), launches, served
+
+
+EXPORT_TOL = {"tsdf_window": 1e-5, "pred_logits": 1e-4}  # tests/test_export.py
+
+
+def _held(got, want, name):
+    """Max abs error of got against want, raising beyond EXPORT_TOL (rtol
+    and atol, as numpy's allclose)."""
+    import torch
+
+    tol = EXPORT_TOL[name]
+    err = (got.float() - want.float()).abs().max().item()
+    if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+        raise AssertionError(f"{name}: artifact vs live max abs err {err} "
+                             f"beyond rtol = atol = {tol}")
+    return err
+
+
+def export_phase(card, served):
+    """The fragment forward as a serving artifact at full width, held
+    against the main phase's live StreamingReconstructor: exported on the
+    card and saved; served from disk by a process that refuses the model
+    code (chip_smoke.py --serve-artifact); seed-2 weights swapped into the
+    loaded program; and an artifact exported on the CPU, moved to the card
+    at load, serving fragment 0. The CPU export runs while the serving
+    process loads."""
+    import numpy as np
+    import torch
+    from eprecon_tpu_torch.fragment_io import FragmentInputs
+    from eprecon_tpu_torch.inference import export as ex
+    from eprecon_tpu_torch.inference import serving
+    from eprecon_tpu_torch.inference.pipeline import fragment_forward
+    from eprecon_tpu_torch.models.eprecon import EPRecon, make_recurrent_state
+    from eprecon_tpu_torch.models.gru_fusion import PanopticGlobalDense
+    from eprecon_tpu_torch.ops import back_project as bp
+
+    cfg, model, frags = served["cfg"], served["model"], served["fragments"]
+    m = cfg.model
+    want_ops = {"eprecon_tpu_torch.window_mean.default": 3,
+                "eprecon_tpu_torch.variance.default": 1}
+
+    def inputs(f, dev):
+        return (f["imgs"].to(dev),
+                FragmentInputs(*(f[k].to(dev) for k in FragmentInputs._fields)))
+
+    work = Path(tempfile.mkdtemp(prefix="eprecon_export_"))
+    proc = None
+    try:
+        t0 = time.perf_counter()
+        ep = ex.export_fragment_forward(cfg, model, *inputs(frags[0], "cuda"))
+        export_s = time.perf_counter() - t0
+        ops = dict(collections.Counter(serving.custom_op_nodes(ep)))
+        if ops != want_ops:
+            raise AssertionError(f"exported graph's custom ops {ops}, want {want_ops}")
+        art = work / "fragment_forward.pt2"
+        t0 = time.perf_counter()
+        ex.save_serving_artifact(art, ep)
+        save_s = time.perf_counter() - t0
+        del ep
+        swap = EPRecon(m, seed=2)
+        torch.save(swap.state_dict(), work / "seed2.pt")
+        go = work / "go"
+        torch.save({"device": "cuda", "swap": str(work / "seed2.pt"),
+                    "go": str(go), "fragments": frags}, work / "requests.pt")
+        proc = subprocess.Popen(
+            [sys.executable, str(REPO / "chip_smoke.py"), "--serve-artifact",
+             str(art), str(work / "requests.pt"), str(work / "results.pt")],
+            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+        # while it loads: the live path on the seed-2 weights and the export
+        # on the CPU; then it serves, alone
+        swap = swap.cuda().eval()
+        live2, _, _, _ = fragment_forward(
+            swap, cfg, *inputs(frags[0], "cuda"), make_recurrent_state(m, "cuda"),
+            PanopticGlobalDense.empty(tuple(m.global_extent), device="cuda"))
+        live2 = {k: live2[k].cpu() for k in EXPORT_TOL}
+        del swap
+        cpu_model = EPRecon(m, seed=cfg.seed)
+        for a, b in zip(cpu_model.state_dict().values(),
+                        model.state_dict().values()):
+            if not torch.equal(a, b.cpu()):
+                raise AssertionError("the CPU model's weights differ from the card's")
+        t0 = time.perf_counter()
+        ep_cpu = ex.export_fragment_forward(cfg, cpu_model,
+                                            *inputs(frags[0], "cpu"), device="cpu")
+        cpu_export_s = time.perf_counter() - t0
+        ex.save_serving_artifact(work / "cpu.pt2", ep_cpu)
+        del ep_cpu, cpu_model
+        go.touch()
+        stdout, stderr = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            raise AssertionError(f"serving process exited {proc.returncode}:\n"
+                                 f"{stderr[-6000:]}")
+        res = torch.load(work / "results.pt")
+        art_mb = art.stat().st_size / 2 ** 20
+        t0 = time.perf_counter()
+        moved = serving.load_serving_artifact(work / "cpu.pt2")  # onto CUDA
+        moved_load_s = time.perf_counter() - t0
+        rec, pmap = serving.initial_state(moved)
+        before = bp.total_launches()
+        with torch.no_grad():
+            out, _, _, _ = moved.module()(*inputs(frags[0], "cuda"), rec, pmap)
+        torch.cuda.synchronize()
+        moved_launches = bp.total_launches() - before
+        if moved_launches != 4:
+            raise AssertionError(f"the CPU-exported artifact launched "
+                                 f"{moved_launches} kernels, want 4")
+        moved_err = {k: _held(out[k].cpu(), served["outputs"][0][k], k)
+                     for k in EXPORT_TOL}
+        del moved, rec, pmap, out
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+        shutil.rmtree(work, ignore_errors=True)
+    if res["model_modules"]:
+        raise AssertionError(f"the serving process imported {res['model_modules']}")
+    errs = {k: max(_held(g[k], w[k], k) for g, w in
+                   zip(res["outputs"], served["outputs"], strict=True))
+            for k in EXPORT_TOL}
+    for got, want in zip(res["snapshots"], served["snapshots"], strict=True):
+        for k in ("instance", "semantic"):
+            if not torch.equal(got[k], want[k]):
+                n = int((got[k] != want[k]).sum())
+                raise AssertionError(f"panoptic map {k}: {n} voxels differ "
+                                     f"from the live path")
+    swap_err = {k: _held(res["swap_outputs"][0][k], live2[k], k)
+                for k in EXPORT_TOL}
+    # (mode, voxels, channels) -> launches over the served fragments and
+    # the swapped-weights one
+    launches = {ast.literal_eval(k): n for k, n in res["launches"].items()}
+    art_p50 = float(np.median(res["ms"][1:]))
+    live_p50 = float(np.median(served["ms"][1:]))
+    out = dict(export_s=export_s, save_s=save_s, artifact_mb=art_mb,
+               load_s=res["load_s"], module_s=res["module_s"],
+               artifact_ms=res["ms"], live_ms=served["ms"],
+               artifact_p50_ms=art_p50, live_p50_ms=live_p50,
+               artifact_peak_gib=res["peak_gib"], live_peak_gib=served["peak_gib"],
+               max_abs_err=errs, swap_max_abs_err=swap_err,
+               cpu_export_s=cpu_export_s, moved_load_s=moved_load_s,
+               moved_max_abs_err=moved_err, custom_ops=ops,
+               launches=res["launches"])
+    print(f"[export] export {export_s:.2f} s, save {save_s:.2f} s, artifact "
+          f"{art_mb:.1f} MB, load {res['load_s']:.2f} s (+ module "
+          f"{res['module_s']:.2f} s) in a process without the model code | "
+          f"p50 ms per fragment: artifact {art_p50:.1f} vs live {live_p50:.1f} "
+          f"| peak GiB: artifact {res['peak_gib']:.2f} vs live "
+          f"{served['peak_gib']:.2f} | {card}", flush=True)
+    print(f"[export] ms per fragment: artifact {[round(x, 1) for x in res['ms']]}"
+          f" vs live {[round(x, 1) for x in served['ms']]} | {card}", flush=True)
+    print(f"[export] max abs err vs live: {errs}; seed-2 weights swapped in: "
+          f"{swap_err}; panoptic maps equal at {len(res['snapshots'])} scene "
+          f"ends; kernel launches in the serving process "
+          f"{res['launches']} | {card}", flush=True)
+    print(f"[export] CPU-exported artifact moved to the card: export "
+          f"{cpu_export_s:.2f} s, load {moved_load_s:.2f} s, 4 launches, max abs "
+          f"err vs live {moved_err} | {card}", flush=True)
+    return out, launches
+
+
+SPVCNN_STAGES = (  # (stage, cr, voxel size m, input channels)
+    (0, 1.0, 0.16, 80), (1, 0.5, 0.08, 138), (2, 0.25, 0.04, 74))
+SPVCNN_POINTS = 131072  # at most, the fine stage's capacity
+SPVCNN_CUT = 8192    # points of the CPU check
+SPVCNN_TOL = 1e-4    # card vs CPU, relative to the output's scale
+GRU_CH = 48          # the fine stage's fused width (voxel ++ image branch)
+
+
+def _device_ms(fn, reps=5):
+    """Median host ms of `fn` with the card synchronised around each call,
+    after one warm-up call."""
+    import numpy as np
+    import torch
+
+    fn()
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out))
+
+
+def _same_plans(a, b, what):
+    """Two plans (SparsePlan or SConv3dPlan) hold equal index tensors."""
+    import torch
+
+    def leaves(x):
+        if isinstance(x, torch.Tensor):
+            yield x
+        elif isinstance(x, tuple):
+            for y in x:
+                yield from leaves(y)
+
+    for x, y in zip(leaves(a), leaves(b), strict=True):
+        if not x.is_floating_point() and not torch.equal(x.cpu(), y.cpu()):
+            raise AssertionError(f"{what}: card and CPU plans differ")
+
+
+def spvcnn_phase(card, served):
+    """The research engine on real geometry: the voxel centres of the
+    first served fragment's fused set at each stage (the GRU fusion's
+    union mask, at most 131,072 points), through build_plan and SPVCNN at
+    the reference's three stage configurations, and a ConvGRU at the fine
+    stage; timed, and held against the port's own CPU run on an 8,192-point
+    cut. The stage-2 dense U-Net's time on its captured input stands beside
+    it for comparison."""
+    import torch
+    from eprecon_tpu_torch.models import spvcnn
+    from eprecon_tpu_torch.ops import sparse as sp
+
+    origin = served["origin"]
+    results = []
+
+    def points(cells, vres, ch, dev, n=SPVCNN_POINTS):
+        cells = cells[:n]
+        k = cells.shape[0]
+        xyz = origin + (cells.float() + 0.5) * vres
+        feats = torch.randn(k, ch, generator=torch.Generator().manual_seed(ch))
+        return sp.PointSet(xyz.to(dev), torch.zeros(k, dtype=torch.int32, device=dev),
+                           feats.to(dev), torch.ones(k, dtype=torch.bool, device=dev))
+
+    def held(module_of, run, plan_of, pts_of, what):
+        outs, plans = [], []
+        for dev in ("cpu", "cuda"):
+            pts, mod = pts_of(dev), module_of(dev)
+            plan = plan_of(pts)
+            plans.append(plan)
+            with torch.no_grad():
+                outs.append(run(mod, pts, plan).cpu())
+        _same_plans(*plans, what)
+        scale = outs[0].abs().max().item()
+        err = (outs[1] - outs[0]).abs().max().item()
+        if not (scale > 0 and err <= SPVCNN_TOL * scale):
+            raise AssertionError(f"{what}: card vs CPU max abs err {err} > "
+                                 f"{SPVCNN_TOL} x {scale}")
+        return err / scale
+
+    for stage, cr, vres, ch in SPVCNN_STAGES:
+        cells = served["stage_voxels"][stage]
+        pts = points(cells, vres, ch, "cuda")
+        model = spvcnn.SPVCNN(ch, cr=cr, seed=1).eval()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        plan_ms = _device_ms(lambda: spvcnn.build_plan(pts, vres))
+        plan = spvcnn.build_plan(pts, vres)
+        with torch.no_grad():
+            fwd_ms = _device_ms(lambda: model(pts.feats, plan))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        voxels = [int(lv.grid.voxels.num_valid()) for lv in plan.levels]
+        rel = held(lambda dev: spvcnn.SPVCNN(ch, cr=cr, seed=1, device=dev).eval(),
+                   lambda mod, p, pl: mod(p.feats, pl),
+                   lambda p: spvcnn.build_plan(p, vres),
+                   lambda dev: points(cells, vres, ch, dev, SPVCNN_CUT),
+                   f"spvcnn stage {stage}")
+        n = int(pts.xyz.shape[0])
+        results.append(dict(stage=stage, cr=cr, vres=vres, in_ch=ch, points=n,
+                            voxels=voxels, plan_ms=plan_ms, forward_ms=fwd_ms,
+                            peak_gib=peak, cpu_rel_err=rel))
+        print(f"[spvcnn] stage {stage}: cr={cr} vres={vres * 100:.0f} cm "
+              f"C_in={ch} points={n} voxels per level={voxels} build_plan "
+              f"ms={plan_ms:.2f} forward ms={fwd_ms:.2f} peak {peak:.2f} GiB | "
+              f"card vs CPU on {SPVCNN_CUT} points: plans equal, rel err "
+              f"{rel:.2e} | {card}", flush=True)
+        del model, plan, pts
+
+    # ConvGRU at the fine stage
+    _, _, vres, _ = SPVCNN_STAGES[-1]
+    fine = served["stage_voxels"][-1]
+    pts = points(fine, vres, GRU_CH, "cuda")
+    n = int(pts.xyz.shape[0])
+    h = torch.randn(n, GRU_CH, generator=torch.Generator().manual_seed(0))
+    gru = spvcnn.ConvGRU(GRU_CH, GRU_CH, seed=1)
+    torch.cuda.reset_peak_memory_stats()
+    gplan_ms = _device_ms(lambda: spvcnn.build_sconv_plan(pts, vres))
+    gplan = spvcnn.build_sconv_plan(pts, vres)
+    with torch.no_grad():
+        gru_ms = _device_ms(lambda: gru(h.cuda(), pts.feats, gplan))
+    gpeak = torch.cuda.max_memory_allocated() / 2 ** 30
+    grel = held(lambda dev: spvcnn.ConvGRU(GRU_CH, GRU_CH, seed=1, device=dev),
+                lambda mod, p, pl: mod(h[:SPVCNN_CUT].to(p.xyz.device), p.feats, pl),
+                lambda p: spvcnn.build_sconv_plan(p, vres),
+                lambda dev: points(fine, vres, GRU_CH, dev, SPVCNN_CUT),
+                "convgru")
+    # the dense stage-2 U-Net on the input it had in the served fragment
+    unet = served["model"].neucon_net.sp_conv_2
+    args = [a.cuda() for a in served["unet_args"]]
+    with torch.no_grad():
+        unet_ms = _device_ms(lambda: unet(*args))
+    del args
+    print(f"[spvcnn] ConvGRU({GRU_CH}) at 4 cm on {n} points: build_sconv_plan "
+          f"ms={gplan_ms:.2f} forward ms={gru_ms:.2f} peak {gpeak:.2f} GiB, "
+          f"card vs CPU rel err {grel:.2e} | the stage-2 dense U-Net (96^3 "
+          f"window) on its served input: {unet_ms:.2f} ms (for comparison) | "
+          f"{card}", flush=True)
+    return dict(stages=results, gru=dict(points=n, plan_ms=gplan_ms,
+                                         forward_ms=gru_ms, peak_gib=gpeak,
+                                         cpu_rel_err=grel),
+                dense_unet_stage2_ms=unet_ms)
 
 
 def reference_phase(card):
@@ -1788,6 +2147,92 @@ def import_phase(root: Path, card):
                 served=served, wall_s=wall), launches
 
 
+def serve_artifact(artifact: Path, requests: Path, results: Path) -> int:
+    """`chip_smoke.py --serve-artifact ARTIFACT REQUESTS RESULTS`: serve
+    fragments from an exported fragment program in a process that loads no
+    model code (`eprecon_tpu_torch.models` is refused by a meta-path
+    blocker, JAX too): the artifact onto the requests' device
+    (inference/serving.py), the empty maps from its signature, the
+    fragments in order (a `reset` starts a new scene's maps), the panoptic
+    map kept where a fragment asks for a `snapshot`; then, with a `swap`
+    state_dict, those weights loaded into the program and the first
+    fragment served again on empty maps. With a `go` path, the serving
+    waits, once the program is loaded, until that file exists (so that no
+    other work of the caller's shares the host while it is timed). Writes
+    the outputs, the kernel launches, the times and the peak memory to
+    RESULTS (torch.save) and prints a JSON summary."""
+    for name in ("jax", "jaxlib", "flax", "optax", "orbax", "eprecon_tpu"):
+        sys.modules[name] = None
+
+    class BlockModelCode:
+        def find_spec(self, name, path=None, target=None):
+            if name.startswith("eprecon_tpu_torch.models"):
+                raise ImportError(f"{name}: the serving process loads no model code")
+
+    sys.meta_path.insert(0, BlockModelCode())
+    sys.path.insert(0, str(REPO))
+    import torch
+    from eprecon_tpu_torch.fragment_io import FragmentInputs
+    from eprecon_tpu_torch.inference import serving
+    from eprecon_tpu_torch.ops import back_project as bp
+
+    req = torch.load(requests)
+    dev = torch.device(req["device"])
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    t0 = time.perf_counter()
+    ep = serving.load_serving_artifact(artifact, dev)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serve = ep.module()
+    module_s = time.perf_counter() - t0
+    if req.get("go") is not None:
+        while not Path(req["go"]).exists():
+            time.sleep(0.05)
+    bp.launch_counts.clear()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+
+    def run(frags, snapshots):
+        outs, ms = [], []
+        rec = pmap = None
+        for f in frags:
+            if f["reset"] or rec is None:
+                rec, pmap = serving.initial_state(ep)
+            frag = FragmentInputs(*(f[k].to(dev) for k in FragmentInputs._fields))
+            sync()
+            t = time.perf_counter()
+            with torch.no_grad():
+                out, _, rec, pmap = serve(f["imgs"].to(dev), frag, rec, pmap)
+            sync()
+            ms.append((time.perf_counter() - t) * 1e3)
+            outs.append({k: out[k].cpu() for k in ("tsdf_window", "pred_logits")})
+            if f.get("snapshot") and snapshots is not None:
+                snapshots.append({"instance": pmap.instance.cpu(),
+                                  "semantic": pmap.semantic.cpu()})
+        return outs, ms
+
+    snapshots = []
+    outs, ms = run(req["fragments"], snapshots)
+    res = dict(load_s=load_s, module_s=module_s, ms=ms, outputs=outs,
+               snapshots=snapshots,
+               launches={str(k): n for k, n in bp.launch_counts.items()},
+               peak_gib=(torch.cuda.max_memory_allocated() / 2 ** 30
+                         if cuda else None),
+               custom_ops=sorted(set(serving.custom_op_nodes(ep))),
+               model_modules=sorted(m for m in sys.modules
+                                    if m.startswith("eprecon_tpu_torch.models")))
+    if req.get("swap") is not None:
+        serve.load_state_dict(torch.load(req["swap"]))
+        res["swap_outputs"], _ = run(req["fragments"][:1], None)
+    torch.save(res, results)
+    print(json.dumps({k: res[k] for k in ("load_s", "module_s", "ms",
+                                          "launches", "peak_gib",
+                                          "custom_ops", "model_modules")}),
+          flush=True)
+    return 0
+
+
 def ddp_only() -> int:
     """`chip_smoke.py --ddp-phase`: the ddp phase alone over a fresh tree,
     for a machine of several cards (nccl across them); the cli phase's
@@ -1822,6 +2267,8 @@ def main() -> int:
     except ImportError:
         print("chip_smoke: PyTorch is not installed", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--serve-artifact"]:  # the export phase's server
+        return serve_artifact(*map(Path, sys.argv[2:5]))
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -1857,14 +2304,25 @@ def main() -> int:
     kern = kernel_phase(case_list, v, card)
     kern_bwd = backward_phase(case_list, v, card)
     del case_list
-    main_res, launches = main_path_phase(card)
+    main_res, launches, served = main_path_phase(card)
+    t0 = time.perf_counter()
+    export_res, export_fwd = export_phase(card, served)
+    t1 = time.perf_counter()
+    spvcnn_res = spvcnn_phase(card, served)
+    export_res["wall_s"], spvcnn_res["wall_s"] = t1 - t0, time.perf_counter() - t1
+    print(f"[export] phase wall {t1 - t0:.1f} s; [spvcnn] phase wall "
+          f"{spvcnn_res['wall_s']:.1f} s | {card}", flush=True)
+    del served
     train_res, train_fwd, train_bwd = train_phase(card)
     for k in kern:
         key = tuple(k["key"])
         k["launches"] = int(launches.get(key, 0))
         k["train_launches"] = int(train_fwd.get(key, 0))
+        k["export_launches"] = int(export_fwd.get(key, 0))
         if k["launches"] == 0 or k["train_launches"] == 0:
             raise AssertionError(f"{k['name']}: not launched on the main path")
+        if k["export_launches"] == 0:
+            raise AssertionError(f"{k['name']}: not launched by the artifact")
     for k in kern_bwd:
         k["launches"] = int(train_bwd.get(tuple(k["key"]), 0))
         if k["launches"] != TRAIN_STEPS:
@@ -1902,7 +2360,7 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, build_s=build_s, ptxas=ptxas, kernels=kern, main_path=main_res,
-        train=train_res, cli=cli_res, ddp=ddp_res, import_phase=import_res,
+        export=export_res, spvcnn=spvcnn_res, train=train_res, cli=cli_res, ddp=ddp_res, import_phase=import_res,
         reference=ref),
         indent=1))
     print(json.dumps({"kernels": kern}))

@@ -7,7 +7,9 @@ attribute path. Leaves change layout by module type:
     spatial taps flipped (flax's transpose conv does not flip its kernel)
   * Dense kernel [in, out] -> Linear weight [out, in]
   * norm 'scale' -> weight; batch_stats 'mean' / 'var' -> running stats
-  * the fused z/r GRU gate is one conv in both, so it keeps its layout.
+  * the fused z/r GRU gate is one conv in both, so it keeps its layout;
+  * a sparse conv's kernel [O, Cin, Cout] keeps flax's layout (modules
+    with `flax_kernel_layout`, models/spvcnn.py).
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ _RENAME = {"scale": "weight", "mean": "running_mean", "var": "running_var"}
 
 def _leaf_to_torch(module: nn.Module, name: str, value: np.ndarray) -> torch.Tensor:
     t = torch.from_numpy(np.array(value, dtype=np.float32))
-    if name != "kernel":
+    if name != "kernel" or getattr(module, "flax_kernel_layout", False):
         return t
     if isinstance(module, Dense):
         return t.T

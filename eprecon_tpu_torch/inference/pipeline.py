@@ -75,6 +75,10 @@ class StreamingReconstructor:
         self.scene_name: Optional[str] = None
         self.global_origin: Optional[np.ndarray] = None
         self.last_losses: Dict[str, torch.Tensor] = {}
+        # the last fragment's program inputs (images, FragmentInputs) and
+        # outputs, for a caller that holds another server to this one
+        self.last_inputs: Optional[tuple] = None
+        self.last_outputs: Dict[str, torch.Tensor] = {}
         self._reset_state()
 
     def _reset_state(self):
@@ -97,6 +101,7 @@ class StreamingReconstructor:
         otherwise below `vol_origin`. With `targets` (on this device),
         `last_losses` holds the fragment's losses as device scalars."""
         finished = None
+        self.last_outputs = {}  # not held through this fragment's forward
         m = self.cfg.model
         if scene != self.scene_name:
             if self.scene_name is not None:
@@ -129,14 +134,15 @@ class StreamingReconstructor:
             torch.as_tensor(vol_origin_partial, dtype=torch.float32, device=dev),
             torch.as_tensor(world_to_aligned_camera, dtype=torch.float32,
                             device=dev),
-            rel)
+            torch.as_tensor(rel, device=dev))
         imgs = np.asarray(imgs)
         if m.transfer_images_uint8 and imgs.dtype != np.uint8:
             imgs = np.clip(np.round(imgs), 0, 255).astype(np.uint8)
+        self.last_inputs = (torch.as_tensor(imgs, device=dev), frag)
         outputs, self.last_losses, self.rec_state, self.pmap_state = \
-            fragment_forward(self.model, self.cfg,
-                             torch.as_tensor(imgs, device=dev), frag,
+            fragment_forward(self.model, self.cfg, *self.last_inputs,
                              self.rec_state, self.pmap_state, targets)
+        self.last_outputs = outputs
         self._overflows.append(outputs["overflow"])
         return finished
 

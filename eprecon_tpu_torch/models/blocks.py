@@ -10,7 +10,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from eprecon_tpu_torch.models.layers import BatchNorm, Conv, Dense, LayerNorm
+from eprecon_tpu_torch.models.layers import (BatchNorm, Conv, Dense, LayerNorm,
+                                             update_running_stats)
 
 BF16 = torch.bfloat16
 
@@ -137,3 +138,36 @@ class MLP(nn.Module):
             if i < self.num_layers - 1:
                 x = F.relu(x)
         return x
+
+
+class MaskedBatchNorm(nn.Module):
+    """BatchNorm over the valid rows of a [K, C] sparse feature set
+    (port of eprecon_tpu/models/blocks.py:138-169; reference BatchNorm1d
+    on the active voxels). Batch statistics unless `use_running_average`;
+    in training mode with batch statistics the running statistics follow
+    the JAX module's update, momentum 0.9. Arithmetic in the input's dtype,
+    as the JAX module's."""
+
+    momentum = 0.9
+
+    def __init__(self, c: int, use_running_average: bool = False,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.ura, self.eps = use_running_average, eps
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.register_buffer("running_mean", torch.zeros(c))
+        self.register_buffer("running_var", torch.ones(c))
+
+    def forward(self, x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        if self.ura:
+            mean, var = self.running_mean, self.running_var
+        else:
+            w = valid.to(x.dtype)[:, None]
+            n = w.sum().clamp(min=1.0)
+            mean = (x * w).sum(0) / n
+            var = (w * (x - mean).square()).sum(0) / n
+            if self.training:
+                update_running_stats(self, mean, var)
+        y = (x - mean) / torch.sqrt(var + self.eps) * self.weight + self.bias
+        return torch.where(valid[:, None], y, 0.0)

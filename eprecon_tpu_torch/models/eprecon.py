@@ -28,6 +28,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from eprecon_tpu_torch.config import ModelConfig
+from eprecon_tpu_torch.fragment_io import (FragmentInputs,  # noqa: F401
+                                          RecurrentState)
 from eprecon_tpu_torch.models import dense3d
 from eprecon_tpu_torch.models.backbone import MnasMulti, get_depths
 from eprecon_tpu_torch.models.blocks import Linear4xTrans
@@ -50,16 +52,6 @@ from eprecon_tpu_torch.train.losses import occupancy_init_loss, tsdf_occ_loss
 BF16 = torch.bfloat16
 
 
-class FragmentInputs(NamedTuple):
-    """One fragment's geometry (batch=1). rel_origins are host integers
-    (window origin per stage in level units, relative to the global
-    volume), so window slicing needs no device read-back."""
-    proj_matrices: torch.Tensor           # [V, n_scales, 4, 4] world->pixel
-    vol_origin_partial: torch.Tensor      # [3] fragment world origin
-    world_to_aligned_camera: torch.Tensor  # [4, 4]
-    rel_origins: np.ndarray               # [n_stages, 3] int
-
-
 class FragmentTargets(NamedTuple):
     """Dense GT windows per pyramid level l (0 = finest), as the data
     pipeline makes them (reference datasets/transforms.py:262-365)."""
@@ -67,12 +59,6 @@ class FragmentTargets(NamedTuple):
     occ: Tuple[torch.Tensor, ...]       # bool, same shapes
     semantic: Optional[torch.Tensor]    # [96^3] nyu40 ids (finest)
     instance: Optional[torch.Tensor]    # [96^3] instance ids (finest)
-
-
-class RecurrentState(NamedTuple):
-    """Cross-fragment state of one scene stream; reset at scene change."""
-    gmaps: Tuple[DenseGlobalLevel, ...]  # per stage (0 = coarse)
-    tmaps: Tuple[DenseTargetLevel, ...]  # GT tsdf target volumes per stage
 
 
 def channel_plan(cfg: ModelConfig):

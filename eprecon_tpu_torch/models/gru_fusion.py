@@ -5,75 +5,43 @@ The per-scene global state is a dense volume per pyramid level; a
 fragment's window is sliced out, fused by two ConvGRUs (voxel / image
 branches) over the union of current and global voxels, and written back.
 Maps are [Gx, Gy, Gz, C] (the JAX package's [Gx, Gy, Gz*C] lane-flattening
-is a TPU layout and is not kept). Window origins are host integers, so
-slicing needs no device sync; the writeback is in place, which stands for
-the JAX version's donated buffers. GT TSDF windows fuse into a parallel
+is a TPU layout and is not kept). Window origins are int tensors on the
+device, as the JAX version traces them, so one exported program serves
+every fragment position; the writeback is in place, which stands for the
+JAX version's donated buffers. GT TSDF windows fuse into a parallel
 dense target volume per level (`DenseTargetLevel`) for the training loss.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
 from typing import Sequence, Tuple
 
-import numpy as np
 import torch
 import torch.nn as nn
 
+from eprecon_tpu_torch.fragment_io import (DenseGlobalLevel,  # noqa: F401
+                                          DenseTargetLevel,
+                                          PanopticGlobalDense)
 from eprecon_tpu_torch.models.unet_dense import DenseConvGRU
 
 MAX_GLOBAL_INSTANCES = 1024  # id table bound for IoU matching
 
 
-@dataclass
-class DenseGlobalLevel:
-    """Dense global feature volume at one pyramid level."""
-    feats: torch.Tensor  # [Gx, Gy, Gz, C]
-    mask: torch.Tensor   # [Gx, Gy, Gz] bool
-
-    @staticmethod
-    def empty(extent: Tuple[int, int, int], channels: int,
-              dtype=torch.float32, device=None) -> "DenseGlobalLevel":
-        return DenseGlobalLevel(
-            torch.zeros(*extent, channels, dtype=dtype, device=device),
-            torch.zeros(*extent, dtype=torch.bool, device=device))
-
-
-@dataclass
-class DenseTargetLevel:
-    """Dense global GT-TSDF volume at one pyramid level (reference
-    target_tsdf_volume)."""
-    tsdf: torch.Tensor  # [Gx, Gy, Gz] f32 (init 1)
-    occ: torch.Tensor   # [Gx, Gy, Gz] bool
-
-    @staticmethod
-    def empty(extent: Tuple[int, int, int], device=None) -> "DenseTargetLevel":
-        return DenseTargetLevel(torch.ones(extent, device=device),
-                                torch.zeros(extent, dtype=torch.bool,
-                                            device=device))
-
-
-def _clamp_origin(rel_origin: Sequence[int], extent, window) -> Tuple[int, ...]:
-    """Window start clamped into the volume (dynamic_slice semantics)."""
-    return tuple(int(np.clip(int(rel_origin[i]), 0, extent[i] - window[i]))
-                 for i in range(3))
-
-
-def _window_slices(vol: torch.Tensor, rel_origin, window):
-    o = _clamp_origin(rel_origin, vol.shape[:3], window)
-    return tuple(slice(o[i], o[i] + window[i]) for i in range(3))
-
-
-def slice_window(vol: torch.Tensor, rel_origin: Sequence[int],
-                 window: Tuple[int, int, int]) -> torch.Tensor:
-    """View of the [X, Y, Z, ...] window at rel_origin (clamped)."""
-    return vol[_window_slices(vol, rel_origin, window)]
-
-
-def update_window(vol: torch.Tensor, win: torch.Tensor,
-                  rel_origin: Sequence[int]) -> torch.Tensor:
-    """Write `win` into `vol` at rel_origin (clamped), in place."""
-    vol[_window_slices(vol, rel_origin, win.shape[:3])] = win
-    return vol
+def window_index(vol: torch.Tensor, rel_origin,
+                 window: Sequence[int]) -> Tuple[torch.Tensor, ...]:
+    """Broadcast index tensors of the [X, Y, Z] window of `vol` at
+    rel_origin [3], clamped into the volume (dynamic_slice semantics).
+    The origin is data on the volume's device, not Python ints, so one
+    exported program serves every fragment position; `vol[idx]` copies
+    the window out and `vol[idx] = win` writes it back in place."""
+    o = torch.as_tensor(rel_origin, device=vol.device)
+    idx = []
+    for i in range(3):
+        start = o[i].clamp(0, vol.shape[i] - window[i])
+        shape = [1, 1, 1]
+        shape[i] = window[i]
+        idx.append((start + torch.arange(window[i], device=vol.device))
+                   .reshape(shape))
+    return tuple(idx)
 
 
 class DenseGRUFusion(nn.Module):
@@ -87,12 +55,12 @@ class DenseGRUFusion(nn.Module):
         self.gru_img = DenseConvGRU(ch_img, ch_img)
 
     def forward(self, cur_feats: torch.Tensor, cur_mask: torch.Tensor,
-                gmap: DenseGlobalLevel, rel_origin: Sequence[int]):
+                gmap: DenseGlobalLevel, rel_origin: torch.Tensor):
         """cur_feats [X, Y, Z, C] (voxel ++ img channels). Returns (fused
         [X, Y, Z, C], union mask, gmap) with gmap updated in place."""
-        window = tuple(cur_mask.shape)
-        g_feats = slice_window(gmap.feats, rel_origin, window).to(cur_feats.dtype)
-        g_mask = slice_window(gmap.mask, rel_origin, window)
+        idx = window_index(gmap.mask, rel_origin, cur_mask.shape)
+        g_feats = gmap.feats[idx].to(cur_feats.dtype)
+        g_mask = gmap.mask[idx]
         union = g_mask | cur_mask
         h = torch.where(g_mask[..., None], g_feats, 0)
         x = torch.where(cur_mask[..., None], cur_feats, 0)
@@ -102,26 +70,24 @@ class DenseGRUFusion(nn.Module):
         fused = torch.where(union[..., None], torch.cat([fv, fi], dim=-1), 0)
         # truncated BPTT, as the reference detaches its global volumes
         # between fragments: the map takes no gradient and holds no graph
-        update_window(gmap.feats, fused.detach().to(gmap.feats.dtype),
-                      rel_origin)
-        update_window(gmap.mask, union, rel_origin)
+        gmap.feats[idx] = fused.detach().to(gmap.feats.dtype)
+        gmap.mask[idx] = union
         return fused, union, gmap
 
 
 def fuse_target_window(tmap: DenseTargetLevel, tsdf_window: torch.Tensor,
-                       occ_window: torch.Tensor, rel_origin: Sequence[int]):
+                       occ_window: torch.Tensor, rel_origin: torch.Tensor):
     """Fuse a fragment's GT window into the global target volume, in
     place, and return the fused window (reference gru_fusion.py:101-110:
     the current fragment overwrites where it is occupied).
     Returns (tsdf [X, Y, Z], occ [X, Y, Z], tmap)."""
-    window = tuple(tsdf_window.shape)
-    g_tsdf = slice_window(tmap.tsdf, rel_origin, window)
-    g_occ = slice_window(tmap.occ, rel_origin, window)
+    idx = window_index(tmap.tsdf, rel_origin, tsdf_window.shape)
+    g_tsdf, g_occ = tmap.tsdf[idx], tmap.occ[idx]
     fused = torch.where(occ_window, tsdf_window,
                         torch.where(g_occ, g_tsdf, 1.0))
     fused_occ = occ_window | g_occ
-    update_window(tmap.tsdf, fused, rel_origin)
-    update_window(tmap.occ, fused_occ, rel_origin)
+    tmap.tsdf[idx] = fused
+    tmap.occ[idx] = fused_occ
     return fused, fused_occ, tmap
 
 
@@ -129,26 +95,6 @@ def fuse_target_window(tmap: DenseTargetLevel, tsdf_window: torch.Tensor,
 # Direct-substitute mode (inference): dense global TSDF + panoptic ids
 # (reference gru_fusion.py:17-20,94,352-370 + panoptic_fusion :133-193)
 # ---------------------------------------------------------------------------
-
-@dataclass
-class PanopticGlobalDense:
-    tsdf: torch.Tensor      # [Gx, Gy, Gz] f32 (init 1)
-    instance: torch.Tensor  # [Gx, Gy, Gz] int32
-    semantic: torch.Tensor  # [Gx, Gy, Gz] int32
-    mask: torch.Tensor      # [Gx, Gy, Gz] bool (observed near-surface)
-    next_instance_id: torch.Tensor  # int32 scalar
-
-    @staticmethod
-    def empty(extent: Tuple[int, int, int], max_stuff: int = 2,
-              device=None) -> "PanopticGlobalDense":
-        i32 = torch.int32
-        return PanopticGlobalDense(
-            torch.ones(extent, device=device),
-            torch.zeros(extent, dtype=i32, device=device),
-            torch.zeros(extent, dtype=i32, device=device),
-            torch.zeros(extent, dtype=torch.bool, device=device),
-            torch.tensor(max_stuff, dtype=i32, device=device))
-
 
 def _segment_sum(values: torch.Tensor, ids: torch.Tensor, n: int):
     out = torch.zeros(n, dtype=values.dtype, device=values.device)
@@ -197,15 +143,14 @@ def panoptic_instance_match(g_instance, g_semantic, g_count, g_class, next_id,
 
 def fuse_tsdf_direct(gmap: PanopticGlobalDense, tsdf_window, cur_mask,
                      seg_window, seg_class, seg_isthing, seg_valid,
-                     rel_origin: Sequence[int]) -> PanopticGlobalDense:
+                     rel_origin: torch.Tensor) -> PanopticGlobalDense:
     """Direct-substitute fusion of a fragment's final TSDF + panoptic
     segment window into the global map, in place (reference gru_fusion.py
     direct mode). tsdf_window / cur_mask / seg_window: [X, Y, Z]."""
     window = tuple(tsdf_window.shape)
-    g_tsdf = slice_window(gmap.tsdf, rel_origin, window)
-    g_mask = slice_window(gmap.mask, rel_origin, window)
-    g_inst = slice_window(gmap.instance, rel_origin, window)
-    g_sem = slice_window(gmap.semantic, rel_origin, window)
+    idx = window_index(gmap.tsdf, rel_origin, window)
+    g_tsdf, g_mask = gmap.tsdf[idx], gmap.mask[idx]
+    g_inst, g_sem = gmap.instance[idx], gmap.semantic[idx]
 
     fused_tsdf = torch.where(cur_mask, tsdf_window,
                              torch.where(g_mask, g_tsdf, 1.0))
@@ -234,9 +179,9 @@ def fuse_tsdf_direct(gmap: PanopticGlobalDense, tsdf_window, cur_mask,
     new_sem = torch.where(pred, vox_sem.reshape(window),
                           torch.where(g_mask, g_sem, 0))
 
-    update_window(gmap.tsdf, fused_tsdf, rel_origin)
-    update_window(gmap.instance, new_inst.int(), rel_origin)
-    update_window(gmap.semantic, new_sem.int(), rel_origin)
-    update_window(gmap.mask, union, rel_origin)
+    gmap.tsdf[idx] = fused_tsdf
+    gmap.instance[idx] = new_inst.int()
+    gmap.semantic[idx] = new_sem.int()
+    gmap.mask[idx] = union
     gmap.next_instance_id = next_id
     return gmap

@@ -28,8 +28,12 @@ def panoptic_inference(mask_cls: torch.Tensor, mask_pred: torch.Tensor,
                        overlap_threshold: float = 0.5,
                        num_classes: int = 20) -> PanopticSeg:
     """mask_cls [Q, nc+1] logits; mask_pred [Q, K] mask logits;
-    voxel_valid [K]. Queries are visited in order (the JAX scan, unrolled
-    into a loop of tensor ops: no host sync)."""
+    voxel_valid [K]. The JAX version scans the queries in order; its
+    result has a closed form, computed here at once: a kept thing query
+    opens a new segment, a kept stuff query opens one for its class unless
+    an earlier kept stuff query of that class did, whose segment it joins;
+    ids count the opened segments in query order. A voxel belongs to at
+    most one query (its argmax), so the scan's overwrites never meet."""
     q, k = mask_pred.shape
     dev = mask_pred.device
     i32 = torch.int32
@@ -47,45 +51,33 @@ def panoptic_inference(mask_cls: torch.Tensor, mask_pred: torch.Tensor,
     mask_area = (best_is & voxel_valid).sum(1)
     original_area = (fg & voxel_valid).sum(1)
     own_all = best_is & fg & voxel_valid
-    ok_all = (keep & (mask_area > 0) & (original_area > 0)
-              & (own_all.sum(1) > 0)
-              & (mask_area.float() >= overlap_threshold * original_area.float()))
+    ok = (keep & (mask_area > 0) & (original_area > 0)
+          & (own_all.sum(1) > 0)
+          & (mask_area.float() >= overlap_threshold * original_area.float()))
 
-    voxel_seg = torch.zeros(k, dtype=i32, device=dev)
-    seg_class = torch.zeros(q + 1, dtype=i32, device=dev)
-    seg_isthing = torch.zeros(q + 1, dtype=torch.bool, device=dev)
-    seg_valid = torch.zeros(q + 1, dtype=torch.bool, device=dev)
-    stuff_memory = torch.zeros(num_classes + 1, dtype=i32, device=dev)
-    current_id = torch.zeros(1, dtype=i32, device=dev)
-    zero = torch.zeros(1, dtype=torch.long, device=dev)
-    # per-query values are 1-element tensors: indexing with them never
-    # reads back to the host
-    for qi in range(q):
-        cls = labels[qi:qi + 1]
-        ok = ok_all[qi:qi + 1]
-        isthing = cls >= THING_ID_START
-        cls_slot = cls.clamp(0, num_classes).long()
-        stuff_existing = stuff_memory[cls_slot]
-        reuse_stuff = ok & ~isthing & (stuff_existing > 0)
-        make_new = ok & (isthing | (stuff_existing == 0))
-        new_id = current_id + 1
-        seg_id = torch.where(reuse_stuff, stuff_existing,
-                             torch.where(make_new, new_id, 0))
-        voxel_seg = torch.where(own_all[qi] & (seg_id > 0), seg_id, voxel_seg)
-        # conditional writes: slot 0 is scratch when the condition is False
-        widx = torch.where(make_new, new_id.long(), zero)
-        seg_class[widx] = torch.where(make_new, cls, seg_class[zero])
-        seg_isthing[widx] = torch.where(make_new, isthing, seg_isthing[zero])
-        seg_valid[widx] = make_new | seg_valid[zero]
-        new_stuff = make_new & ~isthing
-        sidx = torch.where(new_stuff, cls_slot, zero)
-        stuff_memory[sidx] = torch.where(new_stuff, new_id, stuff_memory[zero])
-        current_id = torch.where(make_new, new_id, current_id)
+    isthing = labels >= THING_ID_START
+    ok_stuff = ok & ~isthing
+    # prior[q, p]: p < q is a kept stuff query of q's class
+    prior = ((labels[:, None] == labels[None, :]) & ok_stuff[None, :]
+             & torch.ones(q, q, dtype=torch.bool, device=dev).tril(-1))
+    has_prior = prior.any(dim=1)
+    make_new = ok & (isthing | ~has_prior)
+    new_id = torch.cumsum(make_new.to(i32), 0, dtype=i32)
+    joined = new_id[prior.to(i32).argmax(dim=1)]  # the first such p's id
+    seg_id = torch.where(make_new, new_id,
+                         torch.where(ok_stuff & has_prior, joined, 0))
+    voxel_id = seg_id[vox_best]
+    own = fg.gather(0, vox_best[None])[0] & voxel_valid
+    voxel_seg = torch.where(own & (voxel_id > 0) & keep.any(), voxel_id, 0)
 
-    seg_class[0] = 0
-    seg_isthing[0] = False
-    seg_valid[0] = False
-    voxel_seg = torch.where(keep.any(), voxel_seg, 0)
+    # tables by segment id; queries that open none write zeros to slot 0
+    slot = torch.where(make_new, new_id, 0).long()
+    seg_class = torch.zeros(q + 1, dtype=i32, device=dev).index_put_(
+        (slot,), torch.where(make_new, labels, 0))
+    seg_isthing = torch.zeros(q + 1, dtype=torch.bool, device=dev).index_put_(
+        (slot,), make_new & isthing)
+    seg_valid = torch.zeros(q + 1, dtype=torch.bool, device=dev).index_put_(
+        (slot,), make_new)
     return PanopticSeg(voxel_seg, seg_class, seg_isthing, seg_valid)
 
 

@@ -13,11 +13,13 @@ and two plain helpers on a coordinate list, off the model's path (the
 JAX package computes them with XLA): `project_to_views` and
 `back_project_mean`.
 
-Both are torch.autograd.Functions whose backward gives the features'
-gradient (the counterpart of the JAX package's gather adjoints). A tensor
-on the CPU takes the plain versions; a CUDA tensor launches the kernels or
-raises. The plain forward does the kernel's arithmetic in the kernel's
-order (f32 sums over bf16 tables, f32 projection without fused
+Both are torch custom ops (`eprecon_tpu_torch::window_mean`, `::variance`,
+registered when this module is imported) whose backward ops give the
+features' gradient (the counterpart of the JAX package's gather
+adjoints), so a tracer records them and an exported program runs them. A
+tensor on the CPU takes the plain versions; a CUDA tensor launches the
+kernels or raises. The plain forward does the kernel's arithmetic in the
+kernel's order (f32 sums over bf16 tables, f32 projection without fused
 multiply-adds), so on the card the two agree bit for bit; the backwards
 scatter with f32 atomics (kernel) or index_add_ (plain) and agree to f32
 rounding. The JAX version sums bf16 terms in bf16 and accumulates its
@@ -688,58 +690,21 @@ def back_project_window(dim: Tuple[int, int, int], interval: int,
                         feats: torch.Tensor, proj: torch.Tensor,
                         stats: Optional[torch.Tensor] = None):
     """Mean of visible-view features for every voxel of a dense window
-    (port of back_project.py:147-212).
+    (port of back_project.py:147-212), with the gradient for `feats`
+    (`eprecon_tpu_torch::window_mean`; the count gets none).
 
     dim: (X, Y, Z); interval: window stride in fine voxels; origin [1, 3];
-    feats [V, 1, H, W, C]; proj [V, 1, 4, 4]; stats: kernel only, see
-    `_launch`.
+    feats [V, 1, H, W, C]; proj [V, 1, 4, 4]; stats: the kernel's
+    brick-view tallies (see `_launch`), for the kernel check; that route
+    calls the kernel straight, without a gradient.
     Returns (mean [X, Y, Z, C] bf16, count [X, Y, Z] f32).
     """
     _route(feats, stats)
-    return _WindowMean.apply(feats, origin, proj, tuple(dim), interval,
-                             voxel_size, stats)
-
-
-class _WindowMean(torch.autograd.Function):
-    """back_project_window with the gradient for `feats`: plain forward and
-    backward for CPU tensors, the forward and backward kernels for CUDA
-    ones. The count gets no gradient."""
-
-    @staticmethod
-    def forward(ctx, feats, origin, proj, dim, interval, voxel_size, stats):
-        vv, bb, h, w, c = feats.shape
-        if feats.device.type == "cpu":
-            mean, count = back_project_window_plain(dim, interval, origin,
-                                                    voxel_size, feats, proj)
-        else:
-            if bb != 1:
-                raise ValueError("back_project_window takes one batch element")
-            proj = proj.float().reshape(vv, 1, 16).contiguous()
-            origin = origin.float().reshape(1, 3).contiguous()
-            table = feats.reshape(vv, h * w, c).to(torch.bfloat16).contiguous()
-            mean, count = _launch(WINDOW_MEAN, table, proj, origin, None, None,
-                                  math.prod(dim), h, w, dim, interval,
-                                  voxel_size, stats)
-            mean, count = mean.reshape(*dim, c), count.reshape(dim)
-        ctx.mark_non_differentiable(count)
-        ctx.save_for_backward(origin, proj, count)
-        ctx.args = (dim, interval, voxel_size, feats.shape, feats.dtype)
-        return mean, count
-
-    @staticmethod
-    def backward(ctx, ct, _):
-        origin, proj, count = ctx.saved_tensors
-        dim, interval, voxel_size, shape, dtype = ctx.args
-        vv, _, h, w, c = shape
-        if ct.device.type == "cpu":
-            grad = window_backward_plain(dim, interval, origin, voxel_size,
-                                         proj, count, ct, h, w)
-        else:
-            grad = _launch_backward(
-                WINDOW_MEAN, None, proj, origin, None, None,
-                ct.reshape(-1, c).to(torch.bfloat16).contiguous(),
-                count.reshape(-1), vv, h, w, dim, interval, voxel_size)
-        return grad.to(dtype).reshape(shape), None, None, None, None, None, None
+    if stats is not None:
+        return _window_mean_cuda(feats, origin, proj, list(dim), interval,
+                                 voxel_size, stats)
+    return torch.ops.eprecon_tpu_torch.window_mean(
+        feats, origin, proj, list(dim), interval, float(voxel_size))
 
 
 def back_project_variance(coords: torch.Tensor, valid: torch.Tensor,
@@ -747,58 +712,182 @@ def back_project_variance(coords: torch.Tensor, valid: torch.Tensor,
                           feats: torch.Tensor, proj: torch.Tensor,
                           stats: Optional[torch.Tensor] = None):
     """Cross-view feature variance over visible views per voxel, the
-    occupancy-init matching cost (port of back_project.py:215-249).
+    occupancy-init matching cost (port of back_project.py:215-249), with
+    the gradient for `feats` (`eprecon_tpu_torch::variance`).
 
     coords [K, 4] (b, x, y, z) fine units; valid [K] bool; origin [B, 3];
-    feats [V, B, H, W, C]; proj [V, B, 4, 4]; stats: kernel only, see
-    `_launch`.
+    feats [V, B, H, W, C]; proj [V, B, 4, 4]; stats: as for
+    `back_project_window`.
     Returns (variance [K, C] in feats' dtype, count [K] f32). The kernel
     takes bf16 features, the dtype of the path.
     """
     _route(feats, stats)
-    return _Variance.apply(feats, coords, valid, origin, proj, voxel_size,
-                           stats)
+    if stats is not None:
+        return _variance_cuda(feats, coords, valid, origin, proj, voxel_size,
+                              stats)
+    return torch.ops.eprecon_tpu_torch.variance(feats, coords, valid, origin,
+                                               proj, float(voxel_size))
 
 
-class _Variance(torch.autograd.Function):
-    """back_project_variance with the gradient for `feats`, routed like
-    `_WindowMean`; the backward re-samples the features."""
+# ---------------------------------------------------------------------------
+# the kernels as torch custom ops (namespace eprecon_tpu_torch): a tracer
+# (torch.export) records them as nodes, and the recorded program dispatches
+# them like any op, to the plain version for CPU tensors and to the kernel
+# for CUDA ones. The launch plans are computed when the op runs, not when
+# it is traced.
+# ---------------------------------------------------------------------------
 
-    @staticmethod
-    def forward(ctx, feats, coords, valid, origin, proj, voxel_size, stats):
-        vv, bb, h, w, c = feats.shape
-        if feats.device.type == "cpu":
-            table = feats
-            var, count = back_project_variance_plain(coords, valid, origin,
-                                                     voxel_size, feats, proj)
-        else:
-            if feats.dtype != torch.bfloat16:
-                raise ValueError(
-                    f"variance kernel takes bf16 features, got {feats.dtype}")
-            table = feats.reshape(vv, bb * h * w, c).contiguous()
-            proj = proj.float().reshape(vv, bb, 16).contiguous()
-            origin = origin.float().reshape(bb, 3).contiguous()
-            coords = coords.to(torch.int32).contiguous()
-            valid = valid.to(torch.uint8).contiguous()
-            var, count = _launch(VARIANCE, table, proj, origin, coords, valid,
-                                 coords.shape[0], h, w, voxel_size=voxel_size,
-                                 stats=stats)
-        ctx.mark_non_differentiable(count)
-        ctx.save_for_backward(table, coords, valid, origin, proj, count)
-        ctx.args = (voxel_size, feats.shape, feats.dtype)
-        return var, count
+def _window_mean_cuda(feats, origin, proj, dim, interval, voxel_size,
+                      stats=None):
+    vv, bb, h, w, c = feats.shape
+    if bb != 1:
+        raise ValueError("back_project_window takes one batch element")
+    dim = tuple(dim)
+    mean, count = _launch(
+        WINDOW_MEAN, feats.reshape(vv, h * w, c).to(torch.bfloat16).contiguous(),
+        proj.float().reshape(vv, 1, 16).contiguous(),
+        origin.float().reshape(1, 3).contiguous(), None, None, math.prod(dim),
+        h, w, dim, interval, voxel_size, stats)
+    return mean.reshape(*dim, c), count.reshape(dim)
 
-    @staticmethod
-    def backward(ctx, ct, _):
-        table, coords, valid, origin, proj, count = ctx.saved_tensors
-        voxel_size, shape, dtype = ctx.args
-        vv, _, h, w, _ = shape
-        if ct.device.type == "cpu":
-            grad = variance_backward_plain(coords, valid, origin, voxel_size,
-                                           table, proj, count, ct)
-        else:
-            grad = _launch_backward(
-                VARIANCE, table, proj, origin, coords, valid,
-                ct.to(torch.bfloat16).contiguous(), count, vv, h, w,
-                voxel_size=voxel_size)
-        return grad.to(dtype).reshape(shape), None, None, None, None, None, None
+
+def _variance_cuda(feats, coords, valid, origin, proj, voxel_size,
+                   stats=None):
+    vv, bb, h, w, c = feats.shape
+    if feats.dtype != torch.bfloat16:
+        raise ValueError(f"variance kernel takes bf16 features, got {feats.dtype}")
+    return _launch(VARIANCE, feats.reshape(vv, bb * h * w, c).contiguous(),
+                   proj.float().reshape(vv, bb, 16).contiguous(),
+                   origin.float().reshape(bb, 3).contiguous(),
+                   coords.to(torch.int32).contiguous(),
+                   valid.to(torch.uint8).contiguous(), coords.shape[0], h, w,
+                   voxel_size=voxel_size, stats=stats)
+
+
+@torch.library.custom_op("eprecon_tpu_torch::window_mean", mutates_args=(),
+                         device_types="cpu")
+def _window_mean_op(feats: torch.Tensor, origin: torch.Tensor,
+                    proj: torch.Tensor, dim: List[int], interval: int,
+                    voxel_size: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    return back_project_window_plain(tuple(dim), interval, origin, voxel_size,
+                                     feats, proj)
+
+
+_window_mean_op.register_kernel("cuda")(_window_mean_cuda)
+
+
+@_window_mean_op.register_fake
+def _(feats, origin, proj, dim, interval, voxel_size):
+    return (feats.new_empty((*dim, feats.shape[-1]), dtype=torch.bfloat16),
+            feats.new_empty(dim, dtype=torch.float32))
+
+
+@torch.library.custom_op("eprecon_tpu_torch::window_mean_backward",
+                         mutates_args=(), device_types="cpu")
+def _window_mean_backward_op(ct: torch.Tensor, origin: torch.Tensor,
+                             proj: torch.Tensor, count: torch.Tensor,
+                             dim: List[int], interval: int, voxel_size: float,
+                             h: int, w: int) -> torch.Tensor:
+    """The window mean's [V, H*W, C] f32 table gradient."""
+    return window_backward_plain(tuple(dim), interval, origin, voxel_size,
+                                 proj, count, ct, h, w)
+
+
+@_window_mean_backward_op.register_kernel("cuda")
+def _(ct, origin, proj, count, dim, interval, voxel_size, h, w):
+    vv, c = proj.shape[0], ct.shape[-1]
+    return _launch_backward(
+        WINDOW_MEAN, None, proj.float().reshape(vv, 1, 16).contiguous(),
+        origin.float().reshape(1, 3).contiguous(), None, None,
+        ct.reshape(-1, c).to(torch.bfloat16).contiguous(), count.reshape(-1),
+        vv, h, w, tuple(dim), interval, voxel_size).reshape(vv, h * w, c)
+
+
+@_window_mean_backward_op.register_fake
+def _(ct, origin, proj, count, dim, interval, voxel_size, h, w):
+    return ct.new_empty((proj.shape[0], h * w, ct.shape[-1]),
+                        dtype=torch.float32)
+
+
+def _window_mean_setup(ctx, inputs, output):
+    feats, origin, proj, dim, interval, voxel_size = inputs
+    ctx.mark_non_differentiable(output[1])
+    ctx.save_for_backward(origin, proj, output[1])
+    ctx.args = (dim, interval, voxel_size, feats.shape, feats.dtype)
+
+
+def _window_mean_grad(ctx, ct, _):
+    origin, proj, count = ctx.saved_tensors
+    dim, interval, voxel_size, shape, dtype = ctx.args
+    grad = torch.ops.eprecon_tpu_torch.window_mean_backward(
+        ct, origin, proj, count, dim, interval, voxel_size, shape[2], shape[3])
+    return grad.to(dtype).reshape(shape), None, None, None, None, None
+
+
+_window_mean_op.register_autograd(_window_mean_grad,
+                                  setup_context=_window_mean_setup)
+
+
+@torch.library.custom_op("eprecon_tpu_torch::variance", mutates_args=(),
+                         device_types="cpu")
+def _variance_op(feats: torch.Tensor, coords: torch.Tensor,
+                 valid: torch.Tensor, origin: torch.Tensor, proj: torch.Tensor,
+                 voxel_size: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    return back_project_variance_plain(coords, valid, origin, voxel_size,
+                                       feats, proj)
+
+
+_variance_op.register_kernel("cuda")(_variance_cuda)
+
+
+@_variance_op.register_fake
+def _(feats, coords, valid, origin, proj, voxel_size):
+    n = coords.shape[0]
+    return (feats.new_empty((n, feats.shape[-1])),
+            feats.new_empty((n,), dtype=torch.float32))
+
+
+@torch.library.custom_op("eprecon_tpu_torch::variance_backward",
+                         mutates_args=(), device_types="cpu")
+def _variance_backward_op(feats: torch.Tensor, coords: torch.Tensor,
+                          valid: torch.Tensor, origin: torch.Tensor,
+                          proj: torch.Tensor, count: torch.Tensor,
+                          ct: torch.Tensor, voxel_size: float) -> torch.Tensor:
+    """The variance's [V, B*H*W, C] f32 table gradient."""
+    return variance_backward_plain(coords, valid, origin, voxel_size, feats,
+                                   proj, count, ct)
+
+
+@_variance_backward_op.register_kernel("cuda")
+def _(feats, coords, valid, origin, proj, count, ct, voxel_size):
+    vv, bb, h, w, c = feats.shape
+    return _launch_backward(
+        VARIANCE, feats.reshape(vv, bb * h * w, c).contiguous(),
+        proj.float().reshape(vv, bb, 16).contiguous(),
+        origin.float().reshape(bb, 3).contiguous(),
+        coords.to(torch.int32).contiguous(), valid.to(torch.uint8).contiguous(),
+        ct.to(torch.bfloat16).contiguous(), count, vv, h, w,
+        voxel_size=voxel_size)
+
+
+@_variance_backward_op.register_fake
+def _(feats, coords, valid, origin, proj, count, ct, voxel_size):
+    vv, bb, h, w, c = feats.shape
+    return feats.new_empty((vv, bb * h * w, c), dtype=torch.float32)
+
+
+def _variance_setup(ctx, inputs, output):
+    feats, coords, valid, origin, proj, voxel_size = inputs
+    ctx.mark_non_differentiable(output[1])
+    ctx.save_for_backward(feats, coords, valid, origin, proj, output[1])
+    ctx.voxel_size = voxel_size
+
+
+def _variance_grad(ctx, ct, _):
+    feats, coords, valid, origin, proj, count = ctx.saved_tensors
+    grad = torch.ops.eprecon_tpu_torch.variance_backward(
+        feats, coords, valid, origin, proj, count, ct, ctx.voxel_size)
+    return grad.to(feats.dtype).reshape(feats.shape), None, None, None, None, None
+
+
+_variance_op.register_autograd(_variance_grad, setup_context=_variance_setup)

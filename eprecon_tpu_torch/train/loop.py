@@ -71,8 +71,7 @@ def fragment_targets(data: dict, device: torch.device) -> FragmentTargets:
 def fragment_to_device_args(cfg: Config, data: dict, global_origin: np.ndarray,
                             device: torch.device):
     """dict from the data pipeline -> (imgs, FragmentInputs, FragmentTargets
-    or None) on `device`; the window origins relative to the global volume
-    stay host integers."""
+    or None) on `device`."""
     rel = []
     for i in range(cfg.model.n_layer):
         interval = 2 ** (cfg.model.n_scales - i)
@@ -83,7 +82,7 @@ def fragment_to_device_args(cfg: Config, data: dict, global_origin: np.ndarray,
         _tensor(data["proj_matrices"], device, torch.float32),
         _tensor(data["vol_origin_partial"], device, torch.float32),
         _tensor(data["world_to_aligned_camera"], device, torch.float32),
-        np.stack(rel))
+        _tensor(np.stack(rel), device))
     targets = fragment_targets(data, device) if "tsdf_list" in data else None
     imgs_np = (np.stack(data["imgs"]) if isinstance(data["imgs"], list)
                else data["imgs"])

@@ -139,7 +139,7 @@ def fragment_tensors(d: Mapping[str, np.ndarray], rel_origins: np.ndarray,
     frag = FragmentInputs(t(d["proj_matrices"]).float(),
                           t(d["vol_origin_partial"]).float(),
                           t(d["world_to_aligned_camera"]).float(),
-                          np.asarray(rel_origins))
+                          t(rel_origins))
     targets = FragmentTargets(tuple(t(x).float() for x in d["tsdf_levels"]),
                               tuple(t(x).bool() for x in d["occ_levels"]),
                               t(d["semantic"]).int(), t(d["instance"]).int())

@@ -88,6 +88,63 @@ def test_port_imports_without_yaml_or_image_decoders():
     assert out.stdout.split() == ["(96,", "96,", "96)", "8"]
 
 
+def test_port_imports_without_the_viewers_libraries():
+    """Every module of eprecon_tpu_torch, the viewers included, imports with
+    matplotlib and pyvista made unimportable: the viewers import them when
+    they draw (the card's host has neither)."""
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "for name in ('matplotlib', 'mpl_toolkits', 'pyvista'):\n"
+        "    sys.modules[name] = None\n"
+        "import eprecon_tpu_torch as pkg\n"
+        "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, 'eprecon_tpu_torch.')]\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "assert {'eprecon_tpu_torch.tools.render', 'eprecon_tpu_torch.data.visualization',\n"
+        "        'eprecon_tpu_torch.models.spvcnn', 'eprecon_tpu_torch.inference.export',\n"
+        "        'eprecon_tpu_torch.inference.serving'} <= set(mods)\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["ok"]
+
+
+def test_serving_module_imports_without_the_model_code():
+    """eprecon_tpu_torch.inference.serving, all that a process serving an
+    exported fragment program imports, loads no module of
+    eprecon_tpu_torch.models (refused by a meta-path blocker) and no JAX,
+    and registers the back-projection ops and the call convention's
+    pytrees."""
+    code = (
+        "import sys\n"
+        f"for name in {BLOCKED!r}:\n"
+        "    sys.modules[name] = None\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.startswith('eprecon_tpu_torch.models'):\n"
+        "            raise ImportError('model code: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import torch\n"
+        "import torch.utils._pytree as pytree\n"
+        "from eprecon_tpu_torch.inference import serving\n"
+        "from eprecon_tpu_torch import fragment_io as io\n"
+        "for op in ('window_mean', 'window_mean_backward', 'variance',\n"
+        "           'variance_backward'):\n"
+        "    getattr(torch.ops.eprecon_tpu_torch, op)\n"
+        "for cls in (io.FragmentInputs, io.RecurrentState, io.DenseGlobalLevel,\n"
+        "            io.DenseTargetLevel, io.PanopticGlobalDense):\n"
+        "    assert pytree.SUPPORTED_SERIALIZED_TYPES[cls].serialized_type_name \\\n"
+        "        == 'eprecon_tpu_torch.' + cls.__name__\n"
+        "print(sorted(m for m in sys.modules if m.startswith('eprecon_tpu_torch.models')))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["[]"]
+
+
 def _imported_roots(path: Path):
     roots = set()
     for node in ast.walk(ast.parse(path.read_text())):

@@ -441,3 +441,40 @@ def test_time_fn_waits_for_work_that_returns_nothing():
     ms = benchmark.time_fn(lambda: torch.cuda._sleep(100_000_000), iters=3,
                            warmup=1)
     assert ms >= 40, ms
+
+
+def test_sparse_engine_on_the_card_matches_the_cpu():
+    """The research engine (ops/sparse.py, models/spvcnn.py) on the card
+    against its own CPU run: the plans' coordinate sets, neighbour maps
+    and links are equal (the table's representative row, the largest,
+    does not depend on the order of the card's writes), the per-point
+    output within 1e-4 of its scale (f32 sums in another order; TF32 is
+    off)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from eprecon_tpu_torch.models import spvcnn
+    from eprecon_tpu_torch.ops import sparse as sp
+
+    rng = np.random.default_rng(0)
+    n, cap, c = 3000, 4096, 16
+    xyz = np.concatenate([rng.uniform(0, 2.0, (n, 3)),
+                          np.zeros((cap - n, 3))]).astype(np.float32)
+    feats = rng.standard_normal((cap, c)).astype(np.float32)
+    valid = np.arange(cap) < n
+    out = {}
+    for dev in ("cpu", "cuda"):
+        pts = sp.PointSet(torch.tensor(xyz, device=dev),
+                          torch.zeros(cap, dtype=torch.int32, device=dev),
+                          torch.tensor(feats, device=dev),
+                          torch.tensor(valid, device=dev))
+        plan = spvcnn.build_plan(pts, vres=0.1)
+        model = spvcnn.SPVCNN(c, cr=0.5, seed=1, device=dev)
+        out[dev] = (plan, model(pts.feats, plan).detach())
+    (pc, yc), (pg, yg) = out["cpu"], out["cuda"]
+    for lc, lg in zip(pc.levels, pg.levels):
+        for a, b in zip(lc, lg):
+            if a is not None:
+                assert torch.equal(a.voxels.coords if hasattr(a, "voxels") else a,
+                                   (b.voxels.coords if hasattr(b, "voxels") else b).cpu())
+    scale = yc.abs().max().item()
+    assert (yg.cpu() - yc).abs().max().item() <= 1e-4 * scale
