@@ -34,6 +34,15 @@ Phases (any failure exits non-zero before the result line):
      (96^3 window at 4 cm, 9 views at 640x480, 80-query 6-layer decoder),
      random weights from a seed, 3 fragments of one scene then 1 of a
      second (scene flush); the kernel must launch 4 times per fragment;
+     [jax-session]: after fragment 0 the reconstructor's state is written
+     in the JAX package's session layout (write_jax_session: flattened
+     leaves rec_{i} / pmap_{i}, lane-flattened [Gx, Gy, Gz*C] feature
+     maps), restored into a fresh reconstructor on the card, and fed the
+     rest of scene a: every state tensor and the fragment outputs
+     (tsdf_window, occupancy, pred_logits, pred_masks) must equal the
+     uninterrupted stream's bit for bit, with 4 launches per fragment;
+     then restore_model on an orbax-shaped directory must raise
+     ImportError naming tensorstore (the card's host has none);
   4a. export (inference/export.py): the fragment program exported on the
      card and saved; a process that refuses eprecon_tpu_torch.models
      (--serve-artifact) loads it and serves phase 4's fragments, which
@@ -140,7 +149,8 @@ Phases (any failure exits non-zero before the result line):
      JAX package by tests/test_torch_forward.py and test_torch_train.py).
 Prints ptxas's registers and spills per kernel instance, the card's name
 and power limit, a JSON line of kernel results (`launches` from the
-serving path, `export_launches` from the export phase's serving process,
+serving path, `session_launches` from the restored JAX-layout session,
+`export_launches` from the export phase's serving process,
 `train_launches` from the training phase, `cli_launches`
 from the CLI phase, `ddp_launches` summed over the ddp phase's ranks,
 `import_launches` from serving the imported checkpoint), and as the last
@@ -351,7 +361,7 @@ def main_path_phase(card):
     bp.launch_counts.clear()
     per_frag, map_sizes, finished = [], [], None
     served = dict(cfg=cfg, model=rec.model, fragments=[], outputs=[],
-                  snapshots=[])
+                  snapshots=[], raw=frags, stream=[])
     for i, (scene, d) in enumerate(frags):
         before = bp.total_launches()
         t0 = time.perf_counter()
@@ -387,6 +397,18 @@ def main_path_phase(card):
                                         "semantic": rec.pmap_state.semantic.cpu()})
         if i == 0:
             served["origin"] = frag.vol_origin_partial.cpu()
+            session_dir = Path(tempfile.mkdtemp(prefix="eprecon_session_"))
+            t0 = time.perf_counter()
+            served["jax_session"] = write_jax_session(
+                rec, session_dir / "session.npz")
+            served["jax_session_write_s"] = time.perf_counter() - t0
+        elif scene == frags[0][0]:
+            # the uninterrupted stream that the [jax-session] phase's
+            # restored reconstructor must reproduce bit for bit
+            copy = lambda x: x.to("cpu", copy=True)
+            served["stream"].append(dict(
+                state={k: copy(v) for k, v in rec._state_arrays().items()},
+                outputs={k: copy(rec.last_outputs[k]) for k in SESSION_OUTPUTS}))
         print(f"[main] fragment {i} scene={scene} ms={ms:.1f} "
               f"global-map voxels per level={sizes} | {card}", flush=True)
     for h in hooks:
@@ -410,6 +432,124 @@ def main_path_phase(card):
     return dict(fragment_ms=per_frag, peak_gib=peak, map_sizes=map_sizes,
                 launches={str(k): n for k, n in launches.items()},
                 flushed_shape=list(finished.tsdf.shape)), launches, served
+
+
+# [jax-session]: the main phase's reconstructor, saved after fragment 0 in
+# the JAX package's session layout, restored into a fresh reconstructor
+# and run on; outputs held bit for bit besides every state tensor
+SESSION_OUTPUTS = ("tsdf_window", "occupancy", "pred_logits", "pred_masks")
+
+
+def write_jax_session(rec, path: Path) -> Path:
+    """Write a StreamingReconstructor's scene in progress as the JAX
+    package's save_session writes it (eprecon_tpu/inference/pipeline.py:
+    196-216; tests/test_torch_jax_artifacts.py holds the two writers
+    equal): the recurrent state's leaves in its flattening order as
+    rec_{i} (per level the global map's features, lane-flattened to
+    [Gx, Gy, Gz*C], and mask; then per level the target TSDF and
+    occupancy), the panoptic map's as pmap_{i} (tsdf, instance, semantic,
+    mask, next_instance_id), bf16 widened to f32, then scene, origin,
+    overflows and clipped. Uncompressed: at full width the maps are 2.2 GB
+    of f32."""
+    import numpy as np
+    import torch
+
+    def host(x):
+        x = x.detach().cpu()
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+
+    st, pm = rec.rec_state, rec.pmap_state
+    leaves = [a for g in st.gmaps
+              for a in (host(g.feats).reshape(*g.feats.shape[:2], -1), host(g.mask))]
+    leaves += [host(a) for t in st.tmaps for a in (t.tsdf, t.occ)]
+    pmap = [host(getattr(pm, f)) for f in
+            ("tsdf", "instance", "semantic", "mask", "next_instance_id")]
+    np.savez(path, scene=np.asarray(rec.scene_name or ""),
+             origin=(rec.global_origin if rec.global_origin is not None
+                     else np.full(3, np.nan, np.float32)),
+             overflows=np.asarray([int(o) for o in rec._overflows], np.int64),
+             clipped=np.asarray(rec.clipped_fragments, np.int64),
+             **{f"rec_{i}": a for i, a in enumerate(leaves)},
+             **{f"pmap_{i}": a for i, a in enumerate(pmap)})
+    return path
+
+
+def jax_session_phase(card, served):
+    """Restore the JAX-layout session written after the main phase's
+    fragment 0 into a fresh StreamingReconstructor on the card and feed it
+    the rest of scene a: every state tensor (global, target and panoptic
+    maps) and the outputs in SESSION_OUTPUTS must equal the uninterrupted
+    stream's bit for bit, with 4 kernel launches per fragment. Then
+    restore_model on an orbax-shaped directory must raise ImportError
+    naming tensorstore, which the card's host lacks. Returns (results,
+    launches)."""
+    import torch
+    from eprecon_tpu_torch.inference.pipeline import StreamingReconstructor
+    from eprecon_tpu_torch.ops import back_project as bp
+    from eprecon_tpu_torch.train import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    path = served["jax_session"]
+    try:
+        size_gb = path.stat().st_size / 1e9
+        rec = StreamingReconstructor(served["cfg"], served["model"])
+        t0 = time.perf_counter()
+        rec.restore_session(str(path))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(path.parent, ignore_errors=True)
+    bp.launch_counts.clear()
+    rest = [f for f in served["raw"][1:] if f[0] == served["raw"][0][0]]
+    if len(rest) != len(served["stream"]) or not rest:
+        raise AssertionError("no recorded continuation of scene a")
+    compared, frag_ms = 0, []
+    for j, ((scene, d), want) in enumerate(zip(rest, served["stream"]), 1):
+        before = bp.total_launches()
+        t0 = time.perf_counter()
+        rec.process_fragment(scene, d["imgs"], d["proj_matrices"],
+                             d["vol_origin_partial"] - 0.5,
+                             d["vol_origin_partial"],
+                             d["world_to_aligned_camera"])
+        torch.cuda.synchronize()
+        frag_ms.append((time.perf_counter() - t0) * 1e3)
+        if bp.total_launches() - before != 4:
+            raise AssertionError(f"[jax-session] fragment {j}: "
+                                 f"{bp.total_launches() - before} launches, want 4")
+        got = {**{k: v.cpu() for k, v in rec._state_arrays().items()},
+               **{k: rec.last_outputs[k].cpu() for k in SESSION_OUTPUTS}}
+        for k, w in {**want["state"], **want["outputs"]}.items():
+            if got[k].dtype != w.dtype or not torch.equal(got[k], w):
+                raise AssertionError(f"[jax-session] fragment {j}: {k} differs "
+                                     f"from the uninterrupted stream")
+            compared += 1
+    launches = dict(bp.launch_counts)
+    del rec
+    work = Path(tempfile.mkdtemp(prefix="eprecon_orbax_"))
+    try:
+        (work / "_METADATA").write_text(json.dumps({"tree_metadata": {}}))
+        try:
+            ckpt.restore_model(str(work), served["model"])
+        except ImportError as e:
+            if "tensorstore" not in str(e):
+                raise
+            refusal = f"ImportError: {e}"
+        else:
+            raise AssertionError("restore_model of an orbax directory did "
+                                 "not raise without tensorstore")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    print(f"[jax-session] written after fragment 0 in "
+          f"{served['jax_session_write_s']:.2f} s ({size_gb:.2f} GB), "
+          f"restored in {restore_s:.2f} s; fragments 1-{len(rest)} of scene a "
+          f"({', '.join(f'{x:.1f}' for x in frag_ms)} ms): {compared} tensors "
+          f"bit for bit equal to the uninterrupted stream; phase wall "
+          f"{wall:.1f} s | {card}", flush=True)
+    print(f"[jax-session] restore_model(orbax dir): {refusal}", flush=True)
+    return dict(write_s=served["jax_session_write_s"], file_gb=size_gb,
+                restore_s=restore_s, fragment_ms=frag_ms, tensors=compared,
+                orbax_refusal=refusal, wall_s=wall), launches
 
 
 EXPORT_TOL = {"tsdf_window": 1e-5, "pred_logits": 1e-4}  # tests/test_export.py
@@ -2305,6 +2445,7 @@ def main() -> int:
     kern_bwd = backward_phase(case_list, v, card)
     del case_list
     main_res, launches, served = main_path_phase(card)
+    session_res, session_fwd = jax_session_phase(card, served)
     t0 = time.perf_counter()
     export_res, export_fwd = export_phase(card, served)
     t1 = time.perf_counter()
@@ -2319,8 +2460,11 @@ def main() -> int:
         k["launches"] = int(launches.get(key, 0))
         k["train_launches"] = int(train_fwd.get(key, 0))
         k["export_launches"] = int(export_fwd.get(key, 0))
+        k["session_launches"] = int(session_fwd.get(key, 0))
         if k["launches"] == 0 or k["train_launches"] == 0:
             raise AssertionError(f"{k['name']}: not launched on the main path")
+        if k["session_launches"] == 0:
+            raise AssertionError(f"{k['name']}: not launched by the restored session")
         if k["export_launches"] == 0:
             raise AssertionError(f"{k['name']}: not launched by the artifact")
     for k in kern_bwd:
@@ -2360,7 +2504,7 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, build_s=build_s, ptxas=ptxas, kernels=kern, main_path=main_res,
-        export=export_res, spvcnn=spvcnn_res, train=train_res, cli=cli_res, ddp=ddp_res, import_phase=import_res,
+        jax_session=session_res, export=export_res, spvcnn=spvcnn_res, train=train_res, cli=cli_res, ddp=ddp_res, import_phase=import_res,
         reference=ref),
         indent=1))
     print(json.dumps({"kernels": kern}))

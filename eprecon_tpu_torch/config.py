@@ -1,12 +1,17 @@
 """Typed configuration tree, YAML overlay and dotted-key CLI overrides.
 
 Own copy of the dataclasses in `eprecon_tpu/config.py` (reference:
-config/default.py, config/train.yaml, config/test.yaml). Left for the
-slices that use them: sparse-engine capacities. Two JAX-only knobs are not
-fields (`remat_mode`, a TPU memory setting: the port's peak of 26.92 GiB
-on an 80 GB card has not called for recompute; and `bp_backward`, a TPU
-choice between two equal adjoints: the port has one backward kernel); a
-YAML file or override that sets one is accepted and ignored.
+config/default.py, config/train.yaml, config/test.yaml). The JAX package's
+keys that nothing here reads are not fields (`JAX_ONLY_KEYS`): a YAML file
+or override that sets one is accepted and ignored, so every config the JAX
+package takes loads here. They are `remat_mode` (a TPU memory setting: the
+port's peak of 26.92 GiB on an 80 GB card has not called for recompute),
+`bp_backward` (a TPU choice between two equal adjoints: the port has one
+backward kernel), the static capacities of the JAX sparse engine
+(`stage_capacity`, `point_window`, `global_capacity`, `key_window`) and
+keys the JAX package declares but never reads (`model.fusion.*`,
+`model.panoptic.stuff_ids`, `train.only_occ`, `train.fuse_temporal`,
+`train.bf16`). A key that neither config has still raises KeyError.
 `model.sparsereg_dropout` is a field, and only False builds a model (see
 models/eprecon.EPReconCore).
 
@@ -170,7 +175,14 @@ def default_config() -> Config:
 
 # keys of the JAX package's config that have no meaning here (see the
 # module docstring): accepted from a YAML file or override, and ignored
-JAX_ONLY_KEYS = frozenset({"model.remat_mode", "model.bp_backward"})
+JAX_ONLY_KEYS = frozenset({
+    "model.remat_mode", "model.bp_backward",
+    "model.stage_capacity", "model.point_window", "model.global_capacity",
+    "model.key_window",
+    "model.fusion.fusion_on", "model.fusion.hidden_dim",
+    "model.fusion.average", "model.fusion.full",
+    "model.panoptic.stuff_ids",
+    "train.only_occ", "train.fuse_temporal", "train.bf16"})
 
 
 # ---------------------------------------------------------------------------
@@ -215,10 +227,24 @@ def apply_overrides(cfg: Config, overrides: Sequence[Tuple[str, Any]]) -> Config
     return cfg
 
 
+def _jax_only_subtree(d: dict, prefix: str):
+    """Check that every leaf of a YAML mapping at `prefix`, which no field
+    holds, is a JAX-only key."""
+    for k, v in d.items():
+        key = f"{prefix}{k.lower()}"
+        if isinstance(v, dict):
+            _jax_only_subtree(v, key + ".")
+        elif key not in JAX_ONLY_KEYS:
+            raise KeyError(f"unknown config key: {key!r}")
+
+
 def _merge_dict(cfg: Any, d: dict, prefix: str = "") -> Any:
     for k, v in d.items():
         key = k.lower()
         if isinstance(v, dict):
+            if key not in {f.name for f in dataclasses.fields(cfg)}:
+                _jax_only_subtree(v, f"{prefix}{key}.")
+                continue
             child = getattr(cfg, key)
             cfg = dataclasses.replace(
                 cfg, **{key: _merge_dict(child, v, f"{prefix}{key}.")})

@@ -202,18 +202,29 @@ class StreamingReconstructor:
             **{k: host(v) for k, v in self._state_arrays().items()})
 
     def restore_session(self, path: str):
-        """Resume a session written by save_session; the continuation is
-        exact."""
+        """Resume a session written by save_session, or by the JAX
+        package's save_session (recognised by its `rec_0` entry); the
+        continuation is exact."""
         self._reset_state()
+        refs = self._state_arrays()
         with np.load(path) as z:
             name = str(z["scene"])
             self.scene_name = name or None
             origin = z["origin"]
             self.global_origin = (None if np.isnan(origin).any()
                                   else np.asarray(origin, np.float32))
+            arrays = (_jax_session_arrays(z, self.cfg.model.n_layer)
+                      if "rec_0" in z.files else {k: z[k] for k in refs})
             dev = self.device
-            state = {k: torch.as_tensor(z[k], device=dev).to(ref.dtype)
-                     for k, ref in self._state_arrays().items()}
+            state = {}
+            for k, ref in refs.items():
+                a = arrays[k]
+                if k.endswith("_feats") and a.ndim == 3:   # JAX's [Gx, Gy, Gz*C]
+                    a = a.reshape(*a.shape[:2], -1, ref.shape[-1])
+                if tuple(a.shape) != tuple(ref.shape):
+                    raise ValueError(f"session {k}: shape {tuple(a.shape)}, "
+                                     f"this config's {tuple(ref.shape)}")
+                state[k] = torch.as_tensor(a, device=dev).to(ref.dtype)
             self._overflows = [torch.tensor(int(v), dtype=torch.int32, device=dev)
                                for v in z["overflows"]]
             self.clipped_fragments = int(z["clipped"])
@@ -226,3 +237,25 @@ class StreamingReconstructor:
         self.pmap_state = PanopticGlobalDense(
             **{f.name: state[f"pmap_{f.name}"]
                for f in dataclasses.fields(PanopticGlobalDense)})
+
+
+# the JAX package's session leaves in its flattening order (own copy):
+# RecurrentState(gmaps, tmaps) gives per level DenseGlobalLevel(feats,
+# mask), then per level DenseTargetLevel(tsdf, occ)
+# (eprecon_tpu/models/eprecon.py:71-80); PanopticGlobalDense gives
+# (tsdf, instance, semantic, mask, next_instance_id)
+# (eprecon_tpu/models/gru_fusion.py:170-183)
+JAX_PMAP_LEAVES = ("tsdf", "instance", "semantic", "mask", "next_instance_id")
+
+
+def _jax_session_arrays(z, n_layer: int) -> Dict[str, np.ndarray]:
+    """The JAX session's rec_{i} and pmap_{i} under the port's state names."""
+    rec = ([f"gmap{i}_{f}" for i in range(n_layer) for f in ("feats", "mask")]
+           + [f"tmap{i}_{f}" for i in range(n_layer) for f in ("tsdf", "occ")])
+    pmap = [f"pmap_{f}" for f in JAX_PMAP_LEAVES]
+    if f"rec_{len(rec)}" in z.files or f"rec_{len(rec) - 1}" not in z.files:
+        raise ValueError(f"the JAX session's recurrent state is not of "
+                         f"{n_layer} levels")
+    out = {name: z[f"rec_{i}"] for i, name in enumerate(rec)}
+    out.update({name: z[f"pmap_{i}"] for i, name in enumerate(pmap)})
+    return out

@@ -1,8 +1,10 @@
 """Checkpoints of the training step (port of eprecon_tpu/train/checkpoint.py
 :24-78; reference main.py:186-219, 343-348): model, optimizer state, step
 and epoch under the reference's `model_%06d` names, with torch.save and
-torch.load(weights_only=True). The JAX package's orbax checkpoints are not
-read; carry flax trees over with convert.variables_to_torch. Across ranks
+torch.load(weights_only=True). Every restore also takes the JAX package's
+own checkpoints, orbax directories recognised by their `_METADATA`: they
+go through tools/import_jax_checkpoint.py, which needs `tensorstore` (on a
+host without it, convert them there first with that tool). Across ranks
 rank 0 writes and every rank restores onto its own device.
 """
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 import torch.nn as nn
 
 from eprecon_tpu_torch.parallel import mesh
+from eprecon_tpu_torch.tools import import_jax_checkpoint as jax_ckpt
 from eprecon_tpu_torch.train.state import Trainer
 
 
@@ -41,6 +44,8 @@ def latest_checkpoint(logdir: str) -> Optional[str]:
 
 def restore_checkpoint(path: str, trainer: Trainer) -> Trainer:
     """Restore model, optimizer, step and epoch into `trainer`."""
+    if jax_ckpt.is_orbax_checkpoint(path):
+        return jax_ckpt.jax_state_to_port(jax_ckpt.read_orbax_tree(path), trainer)
     trainer.load_state_dict(torch.load(path, map_location=trainer.device,
                                        weights_only=True))
     return trainer
@@ -49,6 +54,8 @@ def restore_checkpoint(path: str, trainer: Trainer) -> Trainer:
 def restore_model(path: str, model: nn.Module) -> nn.Module:
     """Load the model of a checkpoint into `model` (reference main.py:
     362-367, the test-mode load_state_dict)."""
+    if jax_ckpt.is_orbax_checkpoint(path):
+        return jax_ckpt.jax_state_to_port(jax_ckpt.read_model_tree(path), model)
     device = next(model.parameters()).device
     model.load_state_dict(torch.load(path, map_location=device,
                                      weights_only=True)["model"])
@@ -58,9 +65,14 @@ def restore_model(path: str, model: nn.Module) -> nn.Module:
 def restore_submodule(path: str, model: nn.Module, prefix: str) -> nn.Module:
     """Warm-start only the tensors of `model` whose state_dict name starts
     with `prefix` (flax '/' paths are accepted), from the model of a
-    checkpoint (reference main.py:208-219)."""
+    checkpoint, the port's or the JAX package's (reference main.py:
+    208-219; the JAX package's finetune_layer warm start,
+    eprecon_tpu/train/checkpoint.py:63-78)."""
     prefix = prefix.replace("/", ".")
-    saved = torch.load(path, map_location="cpu", weights_only=True)["model"]
+    if jax_ckpt.is_orbax_checkpoint(path):
+        saved = jax_ckpt.model_state(jax_ckpt.read_model_tree(path), model)
+    else:
+        saved = torch.load(path, map_location="cpu", weights_only=True)["model"]
     state = model.state_dict()
     with torch.no_grad():
         for name, value in saved.items():

@@ -145,6 +145,39 @@ def test_serving_module_imports_without_the_model_code():
     assert out.stdout.split() == ["[]"]
 
 
+def test_jax_checkpoint_reader_needs_tensorstore_only_to_read(tmp_path):
+    """The JAX checkpoint importer and the checkpoint module import with
+    JAX and tensorstore made unimportable; reading an orbax directory then
+    raises ImportError naming tensorstore, through restore_model too (the
+    card's host has no tensorstore: checkpoints are converted where they
+    were written)."""
+    ckpt = tmp_path / "model_000001"
+    ckpt.mkdir()
+    (ckpt / "_METADATA").write_text('{"tree_metadata": {}}')
+    code = (
+        "import sys\n"
+        f"for name in {BLOCKED + ('tensorstore',)!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import torch\n"
+        "from eprecon_tpu_torch.tools import import_jax_checkpoint as ij\n"
+        "from eprecon_tpu_torch.train import checkpoint as ck\n"
+        "assert ij.is_orbax_checkpoint(sys.argv[1])\n"
+        "for read in (ij.read_orbax_tree,\n"
+        "             lambda p: ck.restore_model(p, torch.nn.Linear(1, 1))):\n"
+        "    try:\n"
+        "        read(sys.argv[1])\n"
+        "    except ImportError as e:\n"
+        "        assert 'tensorstore' in str(e), e\n"
+        "    else:\n"
+        "        raise AssertionError('read without tensorstore')\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code, str(ckpt)], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["ok"]
+
+
 def _imported_roots(path: Path):
     roots = set()
     for node in ast.walk(ast.parse(path.read_text())):
