@@ -20,16 +20,20 @@ Phases (any failure exits non-zero before the result line):
      flushed, call_ms the wrapper's time per call, beside the plain
      version, an F.grid_sample yardstick (library_ms) and the least time
      the card could take (bound_ms);
-  3. the backward kernel at the same four shapes against the plain
+  3. the backward kernels at the same four shapes against the plain
      backward (f32 gradient of the tables, max abs error <= 1e-4 of its
      largest entry: f32 atomics sum in a changing order); tally its
-     brick-views where its plan takes bricks (summed per pixel in shared
-     memory and added once / scattered straight into the gradient / empty:
-     the box path must run; shapes whose bricks cannot pay take the
-     per-voxel kernel, which tallies nothing), check that the card holds
-     as many CTAs per SM as its plan assumes (a brick plan cuts shared
-     memory for them), and time it the same way (library_ms: autograd of
-     the F.grid_sample yardstick);
+     brick-views where its plan takes bricks (stages 1-2: summed per pixel
+     in shared memory and added once / scattered straight into the
+     gradient / empty: the box path must run); where the window mean's
+     plan takes view tiles (stage 0, whose bricks cannot fill the card) the
+     visible (voxel, view) pairs the tiles took must equal the forward's
+     view counts' sum; the variance's per-voxel kernel tallies nothing;
+     check that the card holds as many CTAs per SM as the plan assumes (a
+     brick plan cuts shared memory for them; a tile plan's clusters must
+     fit the card at once, and its visible-records pass is checked too),
+     and time it the same way, every kernel of a call summed (library_ms:
+     autograd of the F.grid_sample yardstick);
   4. serve the main path: StreamingReconstructor at the default config
      (96^3 window at 4 cm, 9 views at 640x480, 80-query 6-layer decoder),
      random weights from a seed, 3 fragments of one scene then 1 of a
@@ -191,11 +195,16 @@ def ptxas_lines(so: Path):
         if m:
             f = re.search(r"project_kernelILi(\d+)ELb([01])E", m.group(1))
             k = re.search(r"backward_kernelILi(\d+)E", m.group(1))
-            b = re.search(r"backward_by_voxelILb([01])E", m.group(1))
+            t = re.search(r"backward_tileILi(\d+)E", m.group(1))
+            b = re.search(r"back_project_(backward_by_voxel|backward_visible)",
+                          m.group(1))
             mode = lambda x: "variance" if x == "1" else "mean"
             name = (f"items={f.group(1)} {mode(f.group(2))}" if f
                     else f"backward items={k.group(1)} mean" if k
-                    else f"backward per voxel {mode(b.group(1))}" if b
+                    else f"backward view tile cs={t.group(1)} mean" if t
+                    else {"backward_by_voxel": "backward per voxel variance",
+                          "backward_visible": "backward visible records mean"
+                          }[b.group(1)] if b
                     else m.group(1))
             entries.setdefault(name, [])
         elif name and ("spill" in line or "Used" in line):
@@ -260,7 +269,7 @@ def kernel_phase(case_list, v, card):
 
 
 def backward_phase(case_list, v, card):
-    """Backward kernel vs plain backward at the four call shapes, then
+    """Backward kernels vs plain backward at the four call shapes, then
     timed like the forward."""
     import torch
     from eprecon_tpu_torch.ops import back_project as bp
@@ -279,7 +288,13 @@ def backward_phase(case_list, v, card):
         in_box, direct, empty = stats.tolist()
         plan = bp.plan_backward(case.extent, case.c, case.h, case.w, v,
                                 case.mode)
-        if plan.per_voxel:
+        tile = isinstance(plan, bp.TilePlan)
+        if tile:
+            if (in_box, direct, empty) != (case.visible, 0, 0):
+                raise AssertionError(f"backward {case.name}: the view tiles took "
+                                     f"{stats.tolist()} visible pairs, the forward "
+                                     f"counted {case.visible}")
+        elif plan.per_voxel:
             if in_box + direct + empty != 0:
                 raise AssertionError(f"backward {case.name}: the per-voxel "
                                      f"kernel tallied {stats.tolist()}")
@@ -292,7 +307,27 @@ def backward_phase(case_list, v, card):
             raise AssertionError(f"backward {case.name}: the card holds "
                                  f"{ctas_per_sm} CTAs per SM, the plan assumes "
                                  f"{plan.ctas_per_sm}")
+        held = {}
+        if tile:
+            held = dict(clusters=bp.tile_occupancy(plan)[1],
+                        visible_ctas_per_sm=bp.visible_occupancy(plan))
+            if held["clusters"] < plan.tiles:
+                raise AssertionError(f"backward {case.name}: the card holds "
+                                     f"{held['clusters']} clusters of {plan.ranges} "
+                                     f"at once, the plan's {plan.tiles} assume one "
+                                     "wave")
+            if held["visible_ctas_per_sm"] != plan.visible_ctas_per_sm:
+                raise AssertionError(f"backward {case.name}: the card holds "
+                                     f"{held['visible_ctas_per_sm']} visible-pass "
+                                     f"CTAs per SM, the plan assumes "
+                                     f"{plan.visible_ctas_per_sm}")
         t = bench.time_case(case, v, "backward")
+        launch = (dict(view_tiles=True, cs=plan.cs, ranges=plan.ranges,
+                       tiles=plan.tiles, grid=plan.grid, threads=plan.threads,
+                       smem_bytes=plan.smem_bytes, **held) if tile else
+                  dict(per_voxel=plan.per_voxel, brick=list(plan.brick),
+                       grid=plan.grid, threads=plan.threads, cvec=plan.cvec,
+                       box_px=plan.box_px, smem_bytes=plan.smem_bytes))
         results.append(dict(
             name=f"back_project_backward/{case.name}", route="cuda",
             source="eprecon_tpu_torch/csrc/back_project.cu",
@@ -301,24 +336,30 @@ def backward_phase(case_list, v, card):
             rel_err=err / scale, ctas_per_sm=ctas_per_sm,
             plan_ctas_per_sm=plan.ctas_per_sm,
             brick_views=dict(in_box=in_box, direct=direct, empty=empty),
-            launch_parameters=dict(per_voxel=plan.per_voxel, brick=list(plan.brick),
-                                   grid=plan.grid, threads=plan.threads,
-                                   cvec=plan.cvec, box_px=plan.box_px,
-                                   smem_bytes=plan.smem_bytes)))
+            launch_parameters=launch))
+        if tile:
+            how = (f"view tiles: {plan.cs} channels x {plan.ranges} ranges per "
+                   f"tile, {plan.tiles} clusters (the card holds "
+                   f"{held['clusters']} at once), grid={plan.grid} threads="
+                   f"{plan.threads} smem={plan.smem_bytes} B, visible pairs="
+                   f"{in_box}, visible-pass CTAs/SM on the card="
+                   f"{held['visible_ctas_per_sm']} (plan "
+                   f"{plan.visible_ctas_per_sm})")
+        elif plan.per_voxel:
+            how = f"per-voxel kernel, grid={plan.grid} threads={plan.threads}"
+        else:
+            how = (f"brick-views in-box/direct/empty={in_box}/{direct}/{empty} | "
+                   f"launched with brick={plan.brick} grid={plan.grid} threads="
+                   f"{plan.threads} cvec={plan.cvec} box_px={plan.box_px} "
+                   f"smem={plan.smem_bytes} B")
         print(f"[backward] {case.name}: N={case.n} C={case.c} err={err:.3g} "
               f"(max |plain| {scale:.3g}) ms={t['ms']:.4f} "
-              f"(profiled windows {t['profiler_windows']}) "
-              f"call_ms={t['call_ms']:.4f} plain_ms={t['plain_ms']:.4f} "
+              f"(profiled windows {t['profiler_windows']}; per kernel "
+              + ", ".join(f"{k} {x:.4f}" for k, x in t["parts"].items())
+              + f") call_ms={t['call_ms']:.4f} plain_ms={t['plain_ms']:.4f} "
               f"library_ms={t['library_ms']:.4f} bound_ms={t['bound_ms']:.4f} "
               f"({t['bound_by']}) CTAs/SM on the card={ctas_per_sm} (plan "
-              f"{plan.ctas_per_sm}) " + (
-                  f"per-voxel kernel, grid={plan.grid} threads={plan.threads}"
-                  if plan.per_voxel else
-                  f"brick-views in-box/direct/empty={in_box}/{direct}/{empty} | "
-                  f"launched with brick={plan.brick} grid={plan.grid} threads="
-                  f"{plan.threads} cvec={plan.cvec} box_px="
-                  f"{plan.box_px} smem={plan.smem_bytes} B") + f" | {card}",
-              flush=True)
+              f"{plan.ctas_per_sm}) {how} | {card}", flush=True)
     return results
 
 

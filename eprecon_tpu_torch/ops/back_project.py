@@ -257,11 +257,15 @@ REGS_PER_SM = 65536               # in 4 sub-partitions, each holding whole warp
 # holds another number of CTAs than a plan assumes); multiples of 8, the
 # allocation unit. The forward by (mode, items): its launch bounds (256
 # threads x 3 CTAs) cap them at 80. The brick backward: 256 x 4 caps it at
-# 64. The per-voxel backward by mode.
+# 64. The window mean's view-tile backward by channels per tile: 1024 x 1
+# caps it at 64; its visible-records pass. The variance's per-voxel
+# backward.
 REGS_PER_THREAD = {(WINDOW_MEAN, 1): 64, (WINDOW_MEAN, 2): 72,
                    (WINDOW_MEAN, 3): 80, (VARIANCE, 1): 64, (VARIANCE, 2): 80}
 BWD_REGS_PER_THREAD = 64
-PER_VOXEL_REGS_PER_THREAD = {WINDOW_MEAN: 40, VARIANCE: 64}
+TILE_REGS_PER_THREAD = {2: 64, 4: 64, 8: 64, 16: 64}
+VISIBLE_REGS_PER_THREAD = 32
+PER_VOXEL_REGS_PER_THREAD = 64
 SMEM_MAX = 232448                 # the most one CTA can opt in to (227 KB)
 MIN_BRICK = 16                    # voxels; smaller only when channels force it
 BRICKS = ((8, 8, 8), (4, 8, 8), (4, 4, 8), (4, 4, 4), (2, 4, 4), (2, 2, 4),
@@ -271,6 +275,8 @@ MAX_ITEMS = {WINDOW_MEAN: 3, VARIANCE: 2}  # forward: f32 sums kept in registers
 BWD_MAX_ITEMS = 2                 # brick backward: the window mean's d per item
 BOX_MIN_PX = 1024                 # pixels of the largest box the backward should sum
 BOX_MAX_PX = 65535                # the kernel packs a box pixel into 16 bits
+TILE_MAX_THREADS = 1024           # view-tile backward: threads per CTA
+MAX_CLUSTER = 8                   # CTAs per view tile (a portable cluster)
 
 
 def _warps_by_regs(regs_per_thread: int) -> int:
@@ -295,11 +301,37 @@ class LaunchPlan:
 
 @dataclasses.dataclass(frozen=True)
 class BackwardPlan(LaunchPlan):
-    """A backward launch: one CTA per (brick, channel split), or per
-    MAX_THREADS (voxel, vector) items."""
+    """A backward launch: the window mean's bricks, one CTA per (brick,
+    channel split), or the variance's one thread per (voxel, vector),
+    MAX_THREADS per CTA."""
     cvec: int = 1                # 8-channel vectors per CTA (a divisor of C/8)
     box_px: int = 0              # pixels of the largest box summed in shared memory
     per_voxel: bool = False      # one thread per (voxel, vector), no bricks
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """The window mean's view-tile backward: first the visible-records
+    pass, one thread per (view, row), MAX_THREADS per CTA;
+    then one cluster of `ranges` CTAs per tile (view, `cs` channels). CTA i
+    of the grid is rank i % ranges of tile i // ranges; tile t is channels
+    (t % (c / cs)) * cs .. + cs - 1 of view t // (c / cs); rank r takes
+    places r * ceil(m / ranges) .. of the m visible records of its view."""
+    cs: int                      # channels per tile
+    ranges: int                  # record ranges per tile = CTAs per cluster
+    tiles: int                   # V * C / cs
+    threads: int                 # per CTA, a multiple of 32
+    ctas_per_sm: int             # resident CTAs per SM the plan assumes
+    layout: Tuple[int, ...]      # shared-memory region offsets, then the total
+    visible_ctas_per_sm: int     # the visible-records pass's
+
+    @property
+    def grid(self) -> int:       # CTAs
+        return self.tiles * self.ranges
+
+    @property
+    def smem_bytes(self) -> int:
+        return self.layout[-1]
 
 
 def _align16(x: int) -> int:
@@ -466,36 +498,94 @@ def plan_backward_brick(extent: Tuple[int, int, int], c: int, h: int, w: int,
                         cvec=cvec, box_px=box_px)
 
 
-def per_voxel_plan(n: int, c: int, mode: int) -> BackwardPlan:
-    """The backward as one thread per (voxel, vector) over n rows: no
-    bricks, no shared memory; as many CTAs share an SM as the registers of
-    the mode's instance allow."""
+def tile_regions(h: int, w: int, cs: int):
+    """Bytes of each shared-memory region of one view-tile CTA, in the order
+    of `TileLayout` in csrc/back_project.cu: the f32 gradient tile."""
+    return dict(tile=h * w * cs * 4)
+
+
+def _smem_ctas(smem_bytes: int) -> int:
+    """CTAs of `smem_bytes` of dynamic shared memory that one SM holds."""
+    return SMEM_PER_SM // (-(-smem_bytes // SMEM_GRANULE) * SMEM_GRANULE + 1024)
+
+
+def tile_channel_choices(c: int, h: int, w: int) -> List[int]:
+    """Channels per tile the view-tile backward may take, largest first: the
+    instances' slices (csrc/back_project.cu pick_tile) that divide c and
+    whose tile fits one CTA's shared memory."""
+    return [cs for cs in sorted(TILE_REGS_PER_THREAD, reverse=True)
+            if c % cs == 0 and _layout(tile_regions(h, w, cs))[-1] <= SMEM_MAX]
+
+
+def plan_tile(c: int, h: int, w: int, v: int, cs: int, ranges: int
+              ) -> TilePlan:
+    """The view-tile backward with `cs` channels per tile and `ranges` CTAs
+    per tile: 512 threads per CTA where two CTAs fit an SM's shared memory,
+    else 1024; as many CTAs share an SM as shared memory and the instance's
+    registers allow."""
+    if cs not in tile_channel_choices(c, h, w):
+        raise ValueError(f"{cs} channels per tile: no instance, or {h}x{w} "
+                         "pixels exceed shared memory")
+    if not 1 <= ranges <= MAX_CLUSTER:
+        raise ValueError(f"{ranges} ranges: clusters hold 1..{MAX_CLUSTER} CTAs")
+    layout = _layout(tile_regions(h, w, cs))
+    threads = 512 if _smem_ctas(layout[-1]) >= 2 else TILE_MAX_THREADS
+    ctas = min(_smem_ctas(layout[-1]),
+               _resident(threads, TILE_REGS_PER_THREAD[cs]))
+    return TilePlan(cs, ranges, v * (c // cs), threads, ctas, layout,
+                    _resident(MAX_THREADS, VISIBLE_REGS_PER_THREAD))
+
+
+@functools.lru_cache(maxsize=None)
+def view_tile_plan(c: int, h: int, w: int, v: int) -> TilePlan:
+    """The window mean's view-tile backward over c channels and v views of
+    h x w pixels: of every channel slice (`tile_channel_choices`)
+    and every number of ranges (1..MAX_CLUSTER), the plan with the most
+    CTAs that still run in one wave of resident CTAs (ctas_per_sm per SM),
+    the most channels per tile among equals; where none fits one wave, the
+    fewest CTAs. (A second wave waits for the first's slowest tile; within
+    one wave more ranges shorten each CTA's list: PERF.md.)"""
+    plans = [plan_tile(c, h, w, v, cs, k)
+             for cs in tile_channel_choices(c, h, w)
+             for k in range(1, MAX_CLUSTER + 1)]
+    if not plans:
+        raise ValueError(f"{h}x{w} pixels x {c} channels: no view tile fits "
+                         "shared memory")
+    one_wave = [p for p in plans if p.grid <= p.ctas_per_sm * SM_COUNT]
+    if one_wave:
+        return max(one_wave, key=lambda p: (p.grid, p.cs))
+    return min(plans, key=lambda p: (p.grid, -p.cs))
+
+
+def per_voxel_plan(n: int, c: int) -> BackwardPlan:
+    """The variance's backward as one thread per (voxel, vector) over n
+    rows: no bricks, no shared memory; as many CTAs share an SM as the
+    instance's registers allow."""
     return BackwardPlan((1, 1, 1), math.ceil(n * (c // 8) / MAX_THREADS),
                         MAX_THREADS, 1,
-                        _resident(MAX_THREADS, PER_VOXEL_REGS_PER_THREAD[mode]),
+                        _resident(MAX_THREADS, PER_VOXEL_REGS_PER_THREAD),
                         (), per_voxel=True)
 
 
 @functools.lru_cache(maxsize=None)
 def plan_backward(extent: Tuple[int, ...], c: int, h: int, w: int, v: int,
-                  mode: int = WINDOW_MEAN) -> BackwardPlan:
-    """The backward launch. The window mean takes bricks: the widest
-    channel split (most vectors per CTA) whose box holds BOX_MIN_PX pixels
-    (or a whole image); for it, the largest of the `backward_brick_choices`
-    that fills the card. (Fewer splits repeat the setup, cull and
-    projection fewer times; a larger box keeps more brick-views off the
-    direct path.) The variance over its coordinate list, a window where no
-    split leaves such a box (or none holds the records of every view), and
-    a window whose bricks cannot fill
-    MIN_WAVES waves of the card take `per_voxel_plan`: the occupancy init's
-    row runs are thin slabs whose corners seldom share a pixel (1.2-1.6
-    corners per pixel and run, against 3-5 in a window's bricks), and a
-    grid of bricks under two waves is bound by one CTA's chain of phases;
-    at both the per-voxel kernel measured faster (PERF.md)."""
+                  mode: int = WINDOW_MEAN):
+    """The backward launch. The variance over its coordinate list takes
+    `per_voxel_plan`: the view-tile design measured slower there (PERF.md:
+    its per-row terms over every view cost as much as the whole per-voxel
+    kernel). The window mean takes bricks: the widest channel split (most
+    vectors per CTA) whose box holds BOX_MIN_PX pixels (or a whole image);
+    for it, the largest of the `backward_brick_choices` that fills the
+    card. (Fewer splits repeat the setup, cull and projection fewer times;
+    a larger box keeps more brick-views off the direct path.) A window
+    whose bricks cannot fill MIN_WAVES waves of the card, or where no split
+    leaves such a box, takes view tiles (`view_tile_plan`) where one fits:
+    a grid of bricks under two waves is bound by one CTA's chain of phases
+    (PERF.md)."""
     n = math.prod(extent)
     if mode == VARIANCE:
-        return per_voxel_plan(n, c, mode)
-    nvec = c // 8
+        return per_voxel_plan(n, c)
+    nvec, plan, boxed = c // 8, None, False
     for cvec in sorted((d for d in range(1, nvec + 1) if nvec % d == 0),
                        reverse=True):
         choices = backward_brick_choices(extent, cvec, v)
@@ -504,12 +594,15 @@ def plan_backward(extent: Tuple[int, ...], c: int, h: int, w: int, v: int,
         brick = _largest_filling(extent, choices, nvec // cvec, cvec,
                                  lambda _: BWD_REGS_PER_THREAD)
         plan = plan_backward_brick(extent, c, h, w, v, brick, cvec)
-        if plan.box_px >= min(BOX_MIN_PX, h * w):
+        boxed = plan.box_px >= min(BOX_MIN_PX, h * w)
+        if boxed:
             break
-    else:
-        return per_voxel_plan(n, c, mode)
-    if plan.grid < MIN_WAVES * plan.ctas_per_sm * SM_COUNT:
-        return per_voxel_plan(n, c, mode)
+    if tile_channel_choices(c, h, w) and (
+            not boxed or plan.grid < MIN_WAVES * plan.ctas_per_sm * SM_COUNT):
+        return view_tile_plan(c, h, w, v)
+    if plan is None:
+        raise ValueError(f"{v} views, {h}x{w} pixels x {c} channels: neither "
+                         "bricks nor a view tile fit shared memory")
     return plan
 
 
@@ -529,11 +622,23 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.bp_forward.restype = ctypes.c_int
         lib.bp_occupancy.argtypes = [i, i, i, i, i, ctypes.POINTER(i)]
         lib.bp_occupancy.restype = ctypes.c_int
-        lib.bp_backward.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
+        lib.bp_backward.argtypes = [p, p, p, p, i, i, i, i,
                                     ctypes.c_longlong, i, i, i, i,
-                                    ctypes.c_float, i, i, i, i, i, i, i, i,
+                                    ctypes.c_float, i, i, i, i, i, i,
                                     ctypes.POINTER(ctypes.c_longlong), p, p, p]
         lib.bp_backward.restype = ctypes.c_int
+        lib.bp_backward_tiles.argtypes = [
+            p, p, p, p, i, i, i, i, ctypes.c_longlong, i, i, i,
+            ctypes.c_float, i, i, i, i, ctypes.POINTER(ctypes.c_longlong),
+            p, p, p, p, p, p]
+        lib.bp_backward_tiles.restype = ctypes.c_int
+        lib.bp_tile_occupancy.argtypes = [i, i, i, i, i, ctypes.POINTER(i),
+                                          ctypes.POINTER(i)]
+        lib.bp_tile_occupancy.restype = ctypes.c_int
+        lib.bp_backward_by_voxel.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
+                                             i, ctypes.c_longlong,
+                                             ctypes.c_float, p, p]
+        lib.bp_backward_by_voxel.restype = ctypes.c_int
     return lib
 
 
@@ -611,10 +716,11 @@ def _launch_backward(mode: int, table: Optional[torch.Tensor],
     cotangent ct [N, C] bf16 and the forward's count [N] f32. table: the
     bf16 [V, B*H*W, C] features (variance only; the mean does not read
     them); proj, origin, coords, valid as for `_launch`; stats: None, or
-    int64 [3] that a brick plan's kernel (the window mean's) adds its
-    brick-view tallies to (summed per pixel in shared memory, scattered
-    straight into the gradient, no voxel visible; a per-voxel plan adds
-    none)."""
+    int64 [3] that the window mean's kernel adds its tallies to: a brick
+    plan its brick-views (summed per pixel in shared memory, scattered
+    straight into the gradient, no voxel visible), a view-tile plan the
+    visible (voxel, view) pairs it took, in [0]; the variance's kernel
+    adds none."""
     dev = ct.device
     if dev.type != "cuda":
         raise ValueError(f"back-projection kernel needs CUDA tensors, got {dev}")
@@ -635,14 +741,36 @@ def _launch_backward(mode: int, table: Optional[torch.Tensor],
     plan = plan_backward((n,) if mode == VARIANCE else tuple(dims), c, h, w,
                          v, mode)
     lib = _library()
-    grad = torch.zeros(v, bb * h * w, c, dtype=torch.float32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()
-    rc = lib.bp_backward(
-        ptr(table), proj.data_ptr(), origin.data_ptr(), ptr(coords),
-        ptr(valid), ct.data_ptr(), count.data_ptr(), v, bb, h, w, c, n,
-        dims[0], dims[1], dims[2], interval, float(voxel_size), mode,
-        int(plan.per_voxel), *plan.brick, plan.cvec, plan.threads, plan.items, (ctypes.c_longlong * len(plan.layout))(*plan.layout),
-        grad.data_ptr(), ptr(stats), torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if isinstance(plan, TilePlan):
+        # every entry is written by its tile's cluster: no zero fill
+        grad = torch.empty(v, h * w, c, dtype=torch.float32, device=dev)
+        nrec = torch.zeros(v, dtype=torch.int32, device=dev)
+        rec_ru = torch.empty(v * n, 2, dtype=torch.int32, device=dev)
+        rec_w = torch.empty(v * n, 4, dtype=torch.float32, device=dev)
+        rc = lib.bp_backward_tiles(
+            proj.data_ptr(), origin.data_ptr(), ct.data_ptr(), count.data_ptr(),
+            v, h, w, c, n, dims[1], dims[2], interval, float(voxel_size),
+            plan.cs, plan.ranges, plan.threads, plan.ctas_per_sm,
+            (ctypes.c_longlong * len(plan.layout))(*plan.layout),
+            nrec.data_ptr(), rec_ru.data_ptr(), rec_w.data_ptr(),
+            grad.data_ptr(), ptr(stats), stream)
+    elif plan.per_voxel:
+        grad = torch.zeros(v, bb * h * w, c, dtype=torch.float32, device=dev)
+        rc = lib.bp_backward_by_voxel(
+            table.data_ptr(), proj.data_ptr(), origin.data_ptr(),
+            coords.data_ptr(), valid.data_ptr(), ct.data_ptr(),
+            count.data_ptr(), v, bb, h, w, c, n, float(voxel_size),
+            grad.data_ptr(), stream)
+    else:
+        grad = torch.zeros(v, h * w, c, dtype=torch.float32, device=dev)
+        rc = lib.bp_backward(
+            proj.data_ptr(), origin.data_ptr(), ct.data_ptr(), count.data_ptr(),
+            v, h, w, c, n, *dims, interval, float(voxel_size), *plan.brick,
+            plan.cvec, plan.threads, plan.items,
+            (ctypes.c_longlong * len(plan.layout))(*plan.layout),
+            grad.data_ptr(), ptr(stats), stream)
     if rc != 0:
         raise RuntimeError(f"back_project backward launch failed: CUDA error {rc}")
     backward_launch_counts[(mode, n, c)] += 1
@@ -657,20 +785,46 @@ def total_backward_launches() -> int:
     return sum(backward_launch_counts.values())
 
 
-def occupancy(plan: LaunchPlan, mode: int) -> int:
-    """CTAs of `plan` (forward, or a BackwardPlan) that one SM of the
-    current CUDA device holds, from the CUDA occupancy calculator on the
-    built kernel; the plan assumes `plan.ctas_per_sm` of them (from the
-    instance's registers; a brick backward's box takes the shared memory
-    they leave)."""
-    kernel = (0 if not isinstance(plan, BackwardPlan)
-              else 2 if plan.per_voxel else 1)
+def _occupancy(kernel: int, mode: int, items: int, threads: int,
+               smem_bytes: int) -> int:
     ctas = ctypes.c_int(0)
-    rc = _library().bp_occupancy(kernel, mode, plan.items, plan.threads,
-                                 plan.smem_bytes, ctypes.byref(ctas))
+    rc = _library().bp_occupancy(kernel, mode, items, threads, smem_bytes,
+                                 ctypes.byref(ctas))
     if rc != 0:
         raise RuntimeError(f"back_project occupancy query failed: CUDA error {rc}")
     return ctas.value
+
+
+def occupancy(plan, mode: int) -> int:
+    """CTAs of `plan` (forward, a BackwardPlan or a TilePlan) that one SM of
+    the current CUDA device holds, from the CUDA occupancy calculator on the
+    built kernel; the plan assumes `plan.ctas_per_sm` of them (from the
+    instance's registers and its shared memory; a brick backward's box
+    takes the shared memory they leave)."""
+    if isinstance(plan, TilePlan):
+        return tile_occupancy(plan)[0]
+    kernel = (0 if not isinstance(plan, BackwardPlan)
+              else 2 if plan.per_voxel else 1)
+    return _occupancy(kernel, mode, plan.items, plan.threads, plan.smem_bytes)
+
+
+def visible_occupancy(plan: TilePlan) -> int:
+    """CTAs of the view-tile backward's visible-records pass that one SM
+    holds; the plan assumes `plan.visible_ctas_per_sm`."""
+    return _occupancy(3, WINDOW_MEAN, 1, MAX_THREADS, 0)
+
+
+def tile_occupancy(plan: TilePlan) -> Tuple[int, int]:
+    """(CTAs per SM, clusters per device) of `plan`'s view-tile kernel that
+    the current device holds, with the shared-memory carveout the plan's
+    CTAs need (CUDA occupancy calculator, cudaOccupancyMaxActiveClusters)."""
+    ctas, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    rc = _library().bp_tile_occupancy(plan.cs, plan.threads, plan.smem_bytes,
+                                      plan.ctas_per_sm, plan.ranges,
+                                      ctypes.byref(ctas), ctypes.byref(clusters))
+    if rc != 0:
+        raise RuntimeError(f"back_project occupancy query failed: CUDA error {rc}")
+    return ctas.value, clusters.value
 
 
 # ---------------------------------------------------------------------------

@@ -19,17 +19,25 @@ forward and backward:
   no_pixel_sums      the backward skips the per-pixel sums of the brick-views
                      that take the box (and their atomics): a floor for
                      setup, cull, projection and the cotangents
+  no_tile_atomics    the view-tile backward adds into its shared tile with
+                     plain loads and stores: the cost of its f32 atomics
+  no_tile_records    the view-tile backward takes no record: a floor for its
+                     visible-records pass, zero fill and merge
+  no_tile_merge      the view-tile backward neither takes records nor merges:
+                     a floor for the visible-records pass and the launch
 
-The last three give wrong outputs, which are not checked; every other
+The last six give wrong outputs, which are not checked; every other
 variant must stay bitwise equal to the plain forward and within 1e-4 of
 the plain backward's scale. Then, with the kernels as
 committed, it times every brick the forward plan may choose from
 (ops/back_project.py brick_choices) and every backward launch the backward
-plan may choose from: the per-voxel kernel and, for the window mean, each
-channel split (vectors per CTA) with each brick it allows, and the chosen
-brick plan (or, where the plan takes the per-voxel kernel, the largest
-one-vector brick) with no box (every brick-view scattered straight into
-the gradient), beside the CTAs per SM the card holds.
+plan may choose from: for the variance the per-voxel kernel; for the
+window mean each channel split (vectors per CTA) with each brick it
+allows, the chosen brick plan (or, where the plan takes view tiles, the
+largest one-vector brick) with no box (every brick-view scattered straight
+into the gradient), and the view-tile kernel at every channel slice and
+number of record ranges (ops/back_project.py plan_tile), beside the CTAs
+per SM (and clusters per card) the card holds.
 """
 from __future__ import annotations
 
@@ -55,9 +63,18 @@ VARIANTS = {
                            "  float4* p = reinterpret_cast<float4*>(dst);")],
     "no_pixel_sums": [("    for (int t = tid; t <= npx; t += nthr) s_cnt[t] = 0;",
                        "    if (npx > 0) continue;")],
+    "no_tile_atomics": [("void tile_add(float* p, float x) { atomicAdd(p, x); }",
+                         "void tile_add(float* p, float x) { *p += x; }")],
+    "no_tile_records": [("  for (int q = warp; q < Q; q += nwarps) {",
+                         "  for (int q = warp; q < 0; q += nwarps) {")],
+    "no_tile_merge": [("  for (int q = warp; q < Q; q += nwarps) {",
+                       "  for (int q = warp; q < 0; q += nwarps) {"),
+                      ("  for (int t0 = px0 * CS + tid; t0 < px1 * CS; t0 += kMerge * nthr) {",
+                       "  for (int t0 = px0 * CS + tid; t0 < 0; t0 += kMerge * nthr) {")],
 }
 WRONG_FORWARD = {"no_gather"}
-WRONG_BACKWARD = {"no_gather", "no_global_atomics", "no_pixel_sums"}
+WRONG_BACKWARD = {"no_gather", "no_global_atomics", "no_pixel_sums",
+                  "no_tile_atomics", "no_tile_records", "no_tile_merge"}
 BACKWARD_TOL = 1e-4
 
 
@@ -152,7 +169,7 @@ def main() -> int:
                 if not (torch.equal(k_out, p_out) and torch.equal(k_cnt, p_cnt)):
                     raise AssertionError(f"brick {brick} {case.name}: differs "
                                          "from the plain version")
-                ms, windows = bench.device_ms(case.run, 20)
+                ms, windows, _ = bench.device_ms(case.run, 20)
                 row = dict(device_ms=ms, ctas_per_sm=bp.occupancy(plan, case.mode),
                            plan_ctas_per_sm=plan.ctas_per_sm, grid=plan.grid,
                            threads=plan.threads, chosen=brick == plan_launch(
@@ -165,7 +182,9 @@ def main() -> int:
             bp.plan_launch = plan_launch
             chosen = plan_backward(case.extent, case.c, case.h, case.w, v, case.mode)
             nvec = case.c // 8
-            plans = {"per voxel": bp.per_voxel_plan(case.n, case.c, case.mode)}
+            plans = {}
+            if case.mode == bp.VARIANCE:
+                plans["per voxel"] = bp.per_voxel_plan(case.n, case.c)
             cvecs = [] if case.mode == bp.VARIANCE else [
                 d for d in range(1, nvec + 1) if nvec % d == 0]
             for cvec in cvecs:
@@ -174,22 +193,31 @@ def main() -> int:
                         bp.plan_backward_brick(case.extent, case.c, case.h, case.w,
                                                v, brick, cvec))
             if cvecs:
-                best = chosen if not chosen.per_voxel else plans[
+                best = chosen if isinstance(chosen, bp.BackwardPlan) else plans[
                     f"cvec1 {'x'.join(map(str, bp.backward_brick_choices(case.extent, 1, v)[0]))}"]
                 plans[f"{'x'.join(map(str, best.brick))} cvec{best.cvec}, direct only"] = (
                     bp.plan_backward_brick(case.extent, case.c, case.h, case.w, v,
                                            best.brick, best.cvec, box_px=0))
+                for cs in bp.tile_channel_choices(case.c, case.h, case.w):
+                    for ranges in range(1, bp.MAX_CLUSTER + 1):
+                        plans[f"tiles cs{cs} ranges{ranges}"] = bp.plan_tile(
+                            case.c, case.h, case.w, v, cs, ranges)
             for label, plan in plans.items():
                 bp.plan_backward = lambda *_, plan=plan: plan
                 _backward_close(case)
                 stats = torch.zeros(3, dtype=torch.int64, device="cuda")
                 case.backward(stats=stats)
-                ms, windows = bench.device_ms(case.backward, 20, bench.BACKWARD_KERNEL)
+                ms, windows, _ = bench.device_ms(case.backward, 20, bench.BACKWARD_KERNEL)
+                tile = isinstance(plan, bp.TilePlan)
                 row = dict(device_ms=ms, ctas_per_sm=bp.occupancy(plan, case.mode),
                            plan_ctas_per_sm=plan.ctas_per_sm, grid=plan.grid,
-                           threads=plan.threads, cvec=plan.cvec,
-                           box_px=plan.box_px,
-                           brick_views=stats.tolist(), chosen=plan == chosen)
+                           threads=plan.threads,
+                           **(dict(cs=plan.cs, ranges=plan.ranges,
+                                   clusters=bp.tile_occupancy(plan)[1],
+                                   visible_pairs=stats.tolist()[0]) if tile else
+                              dict(cvec=plan.cvec, box_px=plan.box_px,
+                                   brick_views=stats.tolist())),
+                           chosen=plan == chosen)
                 res["backward_plans"].setdefault(case.name, {})[label] = row
                 print(f"[backward plan] {case.name} {label}: device_ms={ms:.4f} "
                       f"(profiled windows {windows}) " + " ".join(

@@ -4,15 +4,18 @@ shapes of a full-width fragment, on one NVIDIA GPU.
     python eprecon_tpu_torch/tools/bench_back_project.py [--root DIR] [--out FILE]
         [--shapes NAME ...]
 
-Per shape and direction: `ms`, the kernel's own device time (mean duration
-of its `back_project_kernel` / `back_project_backward*` events under
-torch.profiler, with 128 MB written between launches so the tables come
-from device memory, as they do in a fragment; only a profiled window with a
-record of every launch counts); `call_ms`, the wrapper's time per call
-(CUDA events around a run of Python calls; the backward's includes zeroing
-its f32 gradient); the plain PyTorch version's and an F.grid_sample
-yardstick's times (the backward's: autograd of the yardstick for the same
-cotangent); and `bound_ms`, the least time the card could take.
+Per shape and direction: `ms`, the kernels' own device time per call (the
+durations of the call's `back_project_kernel` / `back_project_backward*`
+events under torch.profiler, summed per call: the window mean's view tiles
+launch a visible-records pass and the tile kernel; `parts` splits it by
+kernel), with 128 MB written between calls so the tables come from device
+memory, as they do in a fragment; only a profiled window with a record of
+every launch counts; `call_ms`, the wrapper's time per call (CUDA events
+around a run of Python calls; the brick and per-voxel backwards include
+zeroing their f32 gradient, the view tiles write it whole); the plain
+PyTorch version's and an F.grid_sample yardstick's times (the backward's:
+autograd of the yardstick for the same cotangent); and `bound_ms`, the
+least time the card could take.
 `--root` names the checkout whose eprecon_tpu_torch is timed (default:
 the one holding this file), so that two versions of the kernel can be
 timed on one card: run this file as a script, once per root. `--shapes`
@@ -22,20 +25,22 @@ same cases and also holds the kernel against the plain version.
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import functools
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
-from typing import Callable, List, Tuple
+from typing import Callable, Dict, List, Tuple
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 FLUSH_BYTES = 128 << 20     # written between timed launches; L2 is 50 MB
 WINDOWS = 3                 # profiled windows tried per device time
 KERNEL = "back_project_kernel"
-BACKWARD_KERNEL = "back_project_backward"  # the brick and the per-voxel kernel
+BACKWARD_KERNEL = "back_project_backward"  # every kernel of the backward
 
 # (name, window dim, interval, proj scale, feature h, w, channels); the
 # first is the occupancy-init variance over a coordinate list, the others
@@ -224,14 +229,29 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int, kernel: str = KERNEL) -> Tuple[float, int]:
-    """Mean device duration of the KERNEL events that `iters` calls of
-    `fn` launch under torch.profiler, each after a write of FLUSH_BYTES,
-    and the number of profiled windows that took. Only a window with a
-    record of every launch counts. The profiler has kept fewer records than
-    launches (seldom, cause unknown): such a window is dropped whole and
-    the launches profiled again, at most WINDOWS times in all, then this
-    raises."""
+def kernel_name(name: str) -> str:
+    """A profiler event's kernel, without namespace and arguments:
+    `back_project_backward_tile<true, 4>`."""
+    m = re.search(r"(back_project\w*(<[^>()]*>)?)", name)
+    return m.group(1) if m else name
+
+
+def _records(prof, kernel: str):
+    return [e for e in prof.events()
+            if kernel in e.name and "CUDA" in str(e.device_type)]
+
+
+def device_ms(fn, iters: int, kernel: str = KERNEL
+              ) -> Tuple[float, int, Dict[str, float]]:
+    """Mean device time per call of `fn`: the durations of the KERNEL
+    events (every kernel whose name holds it) that `iters` calls launch
+    under torch.profiler, each call after a write of FLUSH_BYTES, summed
+    per call; the number of profiled windows that took; and the time per
+    call of each kernel by name. One call profiled alone gives the kernels
+    per call, and only a window with that many records per call counts.
+    The profiler has kept fewer records than launches (seldom, cause
+    unknown): such a window is dropped whole and the launches profiled
+    again, at most WINDOWS times in all, then this raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -239,17 +259,25 @@ def device_ms(fn, iters: int, kernel: str = KERNEL) -> Tuple[float, int]:
     fn()
     torch.cuda.synchronize()
     for window in range(1, WINDOWS + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as one:
+            flush.fill_(0)
+            fn()
+            torch.cuda.synchronize()
+        per_call = len(_records(one, kernel))
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for i in range(iters):
                 flush.fill_(i & 255)
                 fn()
             torch.cuda.synchronize()
-        us = [e.time_range.elapsed_us() for e in prof.events()
-              if kernel in e.name and "CUDA" in str(e.device_type)]
-        if len(us) == iters:
-            return sum(us) / len(us) / 1e3, window
-        print(f"[profiler] kept {len(us)} {kernel} records of {iters} "
-              f"launches; profiling them again", file=sys.stderr, flush=True)
+        recs = _records(prof, kernel)
+        if per_call > 0 and len(recs) == per_call * iters:
+            parts: Dict[str, float] = collections.defaultdict(float)
+            for e in recs:
+                parts[kernel_name(e.name)] += e.time_range.elapsed_us() / iters / 1e3
+            return sum(parts.values()), window, dict(parts)
+        print(f"[profiler] kept {len(recs)} {kernel} records of {iters} calls "
+              f"x {per_call} kernels; profiling them again", file=sys.stderr,
+              flush=True)
     raise AssertionError(f"profiler kept fewer {kernel} records than launches "
                          f"in {WINDOWS} windows of {iters}")
 
@@ -261,8 +289,8 @@ def time_case(case: Case, v: int, direction: str = "forward") -> dict:
         (case.run, case.plain, case.library, KERNEL) if direction == "forward"
         else (case.backward, case.backward_plain, case.backward_library,
               BACKWARD_KERNEL))
-    ms, windows = device_ms(run, iters, kernel)
-    return dict(ms=ms, profiler_windows=windows,
+    ms, windows, parts = device_ms(run, iters, kernel)
+    return dict(ms=ms, profiler_windows=windows, parts=parts,
                 call_ms=cuda_ms(run, iters),
                 plain_ms=cuda_ms(plain, max(3, iters // 5)),
                 bound_ms=bound, bound_by=bound_by,

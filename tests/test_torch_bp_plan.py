@@ -1,16 +1,20 @@
 """The back-projection kernels' launch plans (ops/back_project.py
-plan_launch, plan_backward), checked on the CPU at the main path's four
-call shapes and at small ones: the bricks tile the voxels, the grid fills
-the card, and the shared memory and registers of the CTAs that share an SM
-fit in it; the backward's channel splits cover the channels and its box
-accumulator holds the boxes it takes.
+plan_launch, plan_backward, view_tile_plan), checked on the CPU at the main
+path's four call shapes and at small ones: the bricks tile the voxels, the
+grid fills the card, and the shared memory and registers of the CTAs that
+share an SM fit in it; the backward's channel splits cover the channels and
+its box accumulator holds the boxes it takes; the view tiles cover every
+(view, channel, visible record) once, in one wave of clusters.
 
 The tiling below is the kernels' own index arithmetic (csrc/back_project.cu):
 brick c of a window is (c // (gy*gz), c // gz % gy, c % gz) and slot l of a
 brick is voxel (l // (by*bz), l // bz % by, l % bz) of it; brick c of a
 coordinate list is rows c*run .. c*run + run - 1. The forward's CTA c takes
 brick c; the backward's CTA c takes brick c // splits and the channel
-vectors (c % splits) * cvec .. + cvec - 1.
+vectors (c % splits) * cvec .. + cvec - 1. The view-tile backward's CTA c
+is rank c % ranges of tile c // ranges, tile t is channels
+(t % (C / cs)) * cs .. + cs - 1 of view t // (C / cs), and rank r takes
+places r * ceil(m / ranges) .. of the view's m visible records.
 """
 import math
 import re
@@ -18,6 +22,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from eprecon_tpu_torch.ops import back_project as bp
 
@@ -118,7 +123,8 @@ def _check_layout(layout, sizes):
 
 @pytest.mark.parametrize("struct,regions", [
     ("Layout", lambda: bp.smem_regions(1, 1, 1)),
-    ("BwdLayout", lambda: bp.backward_regions(1, 1, 1, 0))])
+    ("BwdLayout", lambda: bp.backward_regions(1, 1, 1, 0)),
+    ("TileLayout", lambda: bp.tile_regions(1, 1, 2))])
 def test_layout_regions_follow_the_kernels_struct(struct, regions):
     """The kernels take the offsets in the field order of their structs."""
     src = (Path(bp.__file__).resolve().parents[1] / "csrc" / "back_project.cu").read_text()
@@ -131,9 +137,13 @@ def test_plan_refuses_what_shared_memory_cannot_hold():
         bp.plan_launch((8, 8, 8), 8, 4000, 1)
     with pytest.raises(ValueError, match="exceed shared memory"):
         bp.plan_backward_brick((8, 8, 8), 8, 4, 4, 4000, (1, 1, 1), 1)
-    # the backward's bricks cannot hold the records: the per-voxel kernel
+    # the backward's bricks cannot hold the records: view tiles, which
+    # hold one view at a time
     assert bp.backward_brick_choices((8, 8, 8), 1, 4000) == []
-    assert bp.plan_backward((8, 8, 8), 8, 4, 4, 4000).per_voxel
+    assert isinstance(bp.plan_backward((8, 8, 8), 8, 4, 4, 4000), bp.TilePlan)
+    # no tile of any slice holds 60,000 pixels
+    with pytest.raises(ValueError, match="no view tile fits"):
+        bp.view_tile_plan(8, 200, 300, 9)
 
 
 # ---------------------------------------------------------------------------
@@ -147,8 +157,9 @@ def _bwd(shape):
 
 def _backward_plans(name):
     """The window mean's brick plan for every channel split (the largest
-    brick each allows), and the plan the backward takes: per-voxel where it
-    takes no bricks (always for the variance's coordinate list)."""
+    brick each allows), and the plan the backward takes: per-voxel for the
+    variance's coordinate list, view tiles for a window whose bricks cannot
+    pay."""
     extent, c, h, w, b, mode = ALL[name]
     nvec = c // 8
     plans = [] if mode == bp.VARIANCE else [
@@ -160,30 +171,38 @@ def _backward_plans(name):
 
 @pytest.mark.parametrize("name", list(ALL))
 def test_backward_takes_bricks_only_where_they_can_pay(name):
-    """Coordinate lists, and windows whose bricks cannot fill two waves of
-    the card (stage 0 and the small ones), take the per-voxel kernel, whose
-    threads own every (voxel, vector) item; the stage 1 and 2 windows take
-    bricks."""
+    """Coordinate lists (the variance) take the per-voxel kernel, whose
+    threads own every (voxel, vector) item; windows whose bricks cannot
+    fill two waves of the card (stage 0 and the small ones) take view
+    tiles; the stage 1 and 2 windows take bricks."""
     extent, c, h, w, b, mode = ALL[name]
     plan = _bwd(ALL[name])
-    if plan.per_voxel:
+    if isinstance(plan, bp.TilePlan):
+        assert len(extent) == 3 and mode == bp.WINDOW_MEAN
+        assert plan == bp.view_tile_plan(c, h, w, V)
+    elif plan.per_voxel:
+        assert mode == bp.VARIANCE
         assert plan.grid * plan.threads >= math.prod(extent) * (c // 8)
         assert (plan.grid - 1) * plan.threads < math.prod(extent) * (c // 8)
         assert plan.smem_bytes == 0
     else:
         assert len(extent) == 3 and mode == bp.WINDOW_MEAN
         assert plan.grid >= bp.MIN_WAVES * plan.ctas_per_sm * bp.SM_COUNT
-    assert plan.per_voxel == (name not in ("stage1_window", "stage2_window"))
+    assert isinstance(plan, bp.TilePlan) == (
+        mode == bp.WINDOW_MEAN and name not in ("stage1_window", "stage2_window"))
 
 
 @pytest.mark.parametrize("name", list(ALL))
 def test_backward_bricks_and_splits_cover_every_item_once(name):
     """Every (voxel, channel vector) belongs to exactly one CTA, for every
     channel split of the brick plans and for the per-voxel plan (thread j
-    of the launch owns item j)."""
+    of the launch owns item j); view tiles cover every (view, channel,
+    record) once (test_tile_plan_covers_every_view_channel_and_record_once)."""
     extent, c, h, w, b, mode = ALL[name]
     nvec, n = c // 8, math.prod(extent)
     for plan in _backward_plans(name):
+        if isinstance(plan, bp.TilePlan):
+            continue
         hits = np.zeros((n, nvec), np.int64)
         if plan.per_voxel:
             item = np.arange(plan.grid * plan.threads)
@@ -210,8 +229,11 @@ def test_backward_layout_and_resources(name):
     the CTAs their registers allow."""
     extent, c, h, w, b, mode = ALL[name]
     for plan in _backward_plans(name):
+        if isinstance(plan, bp.TilePlan):
+            _check_tile_resources(plan, h, w)
+            continue
         if plan.per_voxel:
-            regs = bp.PER_VOXEL_REGS_PER_THREAD[mode]
+            regs = bp.PER_VOXEL_REGS_PER_THREAD
             assert plan.layout == () and plan.threads == bp.MAX_THREADS
             assert plan.ctas_per_sm == 4 * (16384 // (regs * 32)) // 8
             continue
@@ -236,15 +258,24 @@ def test_plans_assume_the_ctas_the_card_holds(name):
     card's occupancy calculator gives for the modelled registers (chip_smoke
     holds it against the card): the forward and the per-voxel backward by
     registers alone (the grid does not cap it), a brick backward also by
-    its shared memory, which holds exactly that many CTAs."""
+    its shared memory, which holds exactly that many CTAs, and view tiles
+    by shared memory and registers, the visible-records pass by
+    registers."""
     extent, c, h, w, b, mode = PATH[name]
     fwd = _plan(PATH[name])
     assert fwd.ctas_per_sm == bp._resident(fwd.threads,
                                            bp.REGS_PER_THREAD[mode, fwd.items])
     bwd = _bwd(PATH[name])
-    if bwd.per_voxel:
+    if isinstance(bwd, bp.TilePlan):
+        allocated = -(-bwd.smem_bytes // 128) * 128 + 1024
+        assert bwd.ctas_per_sm == min(
+            bp._resident(bwd.threads, bp.TILE_REGS_PER_THREAD[bwd.cs]),
+            228 * 1024 // allocated)
+        assert bwd.visible_ctas_per_sm == bp._resident(
+            bp.MAX_THREADS, bp.VISIBLE_REGS_PER_THREAD)
+    elif bwd.per_voxel:
         assert bwd.ctas_per_sm == bp._resident(
-            bwd.threads, bp.PER_VOXEL_REGS_PER_THREAD[mode])
+            bwd.threads, bp.PER_VOXEL_REGS_PER_THREAD)
     else:
         allocated = -(-bwd.smem_bytes // 128) * 128 + 1024
         assert bwd.ctas_per_sm == min(
@@ -254,7 +285,8 @@ def test_plans_assume_the_ctas_the_card_holds(name):
 
 def test_register_table_covers_every_kernel_instance():
     """The plans model the registers of exactly the instances the library
-    launches (csrc/back_project.cu pick, pick_backward, bp_backward)."""
+    launches (csrc/back_project.cu pick, pick_backward, pick_tile, the
+    visible-records pass and the variance's per-voxel kernel)."""
     src = (Path(bp.__file__).resolve().parents[1] / "csrc" / "back_project.cu").read_text()
     modes = {"false": bp.WINDOW_MEAN, "true": bp.VARIANCE}
     fwd = {(modes[m], int(k)) for k, m in
@@ -263,8 +295,13 @@ def test_register_table_covers_every_kernel_instance():
     assert {m: max(k for mm, k in fwd if mm == m) for m in modes.values()} == bp.MAX_ITEMS
     bwd = {int(k) for k in re.findall(r"return back_project_backward_kernel<(\d)>;", src)}
     assert bwd == set(range(1, bp.BWD_MAX_ITEMS + 1))
-    by_voxel = {modes[m] for m in re.findall(r"back_project_backward_by_voxel<(true|false)>", src)}
-    assert by_voxel == set(bp.PER_VOXEL_REGS_PER_THREAD)
+    tiles = {int(k) for k in re.findall(r"return back_project_backward_tile<(\d+)>;", src)}
+    assert tiles == set(bp.TILE_REGS_PER_THREAD)
+    # one instance each, no template: the table holds a number
+    for kernel, regs in (("back_project_backward_by_voxel", bp.PER_VOXEL_REGS_PER_THREAD),
+                         ("back_project_backward_visible", bp.VISIBLE_REGS_PER_THREAD)):
+        assert re.search(r"void __launch_bounds__\(kMaxThreads\) %s\(" % kernel, src)
+        assert isinstance(regs, int) and regs % 8 == 0
 
 
 def _boxes(shape, plan, depth):
@@ -316,3 +353,195 @@ def test_backward_box_region_holds_the_boxes_it_takes(name, depth):
         assert len(taken) < len(boxes)
     else:
         assert len(taken) >= 0.5 * len(boxes)
+
+
+# ---------------------------------------------------------------------------
+# the window mean's view tiles
+# ---------------------------------------------------------------------------
+
+WINDOWS = [name for name, shape in ALL.items() if shape[-1] == bp.WINDOW_MEAN]
+
+
+def _tile_plans(name):
+    """Every plan the view tiles may take at a window shape: each channel
+    slice with each number of ranges."""
+    extent, c, h, w, b, mode = ALL[name]
+    return [bp.plan_tile(c, h, w, V, cs, k)
+            for cs in bp.tile_channel_choices(c, h, w)
+            for k in range(1, bp.MAX_CLUSTER + 1)]
+
+
+def _check_tile_resources(plan, h, w):
+    """Shared memory fits one CTA and the resident CTAs the plan assumes;
+    registers hold its threads; the layout is the tile's."""
+    _check_layout(plan.layout, bp.tile_regions(h, w, plan.cs))
+    assert 0 < plan.smem_bytes <= bp.SMEM_MAX
+    allocated = -(-plan.smem_bytes // 128) * 128
+    assert plan.ctas_per_sm >= 1
+    assert plan.ctas_per_sm * (allocated + 1024) <= 228 * 1024
+    regs = bp.TILE_REGS_PER_THREAD[plan.cs]
+    assert plan.ctas_per_sm * plan.threads // 32 <= 4 * (16384 // (regs * 32))
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= bp.TILE_MAX_THREADS
+
+
+@pytest.mark.parametrize("name", WINDOWS)
+def test_tile_plans_fit_shared_memory_and_the_resident_ctas(name):
+    extent, c, h, w, b, mode = ALL[name]
+    for plan in _tile_plans(name):
+        _check_tile_resources(plan, h, w)
+        # a cluster of `ranges` CTAs per tile: the cluster size divides the grid
+        assert 1 <= plan.ranges <= bp.MAX_CLUSTER
+        assert plan.grid % plan.ranges == 0 and plan.grid == plan.tiles * plan.ranges
+        assert plan.tiles == V * (c // plan.cs) and c % plan.cs == 0
+
+
+def _tile_hits(plan, v, c, m):
+    """hits[view, channel, record] of every lane of every CTA of `plan` over
+    lists of m records per view, by the kernel's index arithmetic."""
+    lp = min(plan.cs, 8)
+    r = 32 // lp
+    hits = np.zeros((v, c, m), np.int64)
+    for cta in range(plan.grid):
+        tile, rank = divmod(cta, plan.ranges)
+        view, sl = divmod(tile, c // plan.cs)
+        part = -(-m // plan.ranges)
+        i0 = min(m, rank * part)
+        mm = min(m, i0 + part) - i0
+        q = -(-mm // r)
+        for slot in range(r):
+            cols = np.arange(max(0, min(q, mm - slot * q)))
+            for e in range(lp):
+                for ch in range(e, plan.cs, lp):
+                    hits[view, sl * plan.cs + ch, i0 + slot * q + cols] += 1
+    return hits
+
+
+@pytest.mark.parametrize("m", [0, 1, 31, 333, 1200])
+def test_tile_plan_covers_every_view_channel_and_record_once(m):
+    """Each (view, channel, visible record) is added by exactly one lane of
+    one CTA, for every channel slice and number of ranges, lists of any
+    length (ragged last ranges and columns included)."""
+    c, v = 16, 3
+    for cs in bp.tile_channel_choices(c, 6, 7):
+        for k in (1, 2, 3, 5, 8):
+            plan = bp.plan_tile(c, 6, 7, v, cs, k)
+            assert (_tile_hits(plan, v, c, m) == 1).all(), (cs, k)
+
+
+@pytest.mark.parametrize("name", WINDOWS)
+def test_tile_plan_takes_the_most_ctas_in_one_wave(name):
+    """view_tile_plan: of the plans whose grid fits one wave of resident
+    CTAs, the largest grid (the most channels per tile among equals); at
+    stage 0, 16 channels x 5 ranges (225 CTAs, 2 per SM)."""
+    extent, c, h, w, b, mode = ALL[name]
+    plan = bp.view_tile_plan(c, h, w, V)
+    one_wave = [p for p in _tile_plans(name)
+                if p.grid <= p.ctas_per_sm * bp.SM_COUNT]
+    assert plan.grid <= plan.ctas_per_sm * bp.SM_COUNT
+    assert all((p.grid, p.cs) <= (plan.grid, plan.cs) for p in one_wave)
+    if name == "stage0_window":
+        assert (plan.cs, plan.ranges, plan.grid, plan.ctas_per_sm) == (16, 5, 225, 2)
+
+
+def test_tile_layout_rotation_is_a_permutation_of_each_pixel():
+    """Pixel px's channel c sits at px * cs + (c + px) mod cs: within each
+    pixel's block a permutation (the LP lanes of a record fall on LP
+    banks), and where two pixels' blocks start on the same bank but px
+    differs mod cs (cs of 8 and 16), channel c of the two on other banks."""
+    for cs in bp.TILE_REGS_PER_THREAD:
+        px = np.arange(256)[:, None]
+        at = px * cs + (np.arange(cs)[None, :] + px) % cs
+        assert (np.sort(at, axis=1) == px * cs + np.arange(cs)).all()
+        same_start = (px * cs) % 32 == (px.T * cs) % 32
+        apart = px % cs != px.T % cs
+        for ch in range(cs):
+            bank = at[:, ch] % 32
+            clash = bank[:, None] == bank[None, :]
+            assert not (clash & same_start & apart).any()
+        assert (same_start & apart).any() == (cs >= 8)
+
+
+def _cameras(v, h, w, depth=1.0):
+    """Views looking down +z at a small window from `depth` in front."""
+    out = np.zeros((v, 1, 4, 4), np.float32)
+    for i in range(v):
+        k = np.array([[w * 1.5, 0, (w - 1) / 2], [0, w * 1.5, (h - 1) / 2], [0, 0, 1]])
+        out[i, 0] = np.eye(4)
+        out[i, 0, :3, :4] = k @ np.array([[1, 0, 0, -0.25 - 0.04 * i],
+                                          [0, 1, 0, -0.2], [0, 0, 1, depth]])
+    return torch.from_numpy(out)
+
+
+def _emulate_tiles(dim, interval, origin, voxel_size, proj, count, ct, h, w,
+                   plan, seed):
+    """The view-tile backward in torch on one thread, partition for
+    partition: per view the visible records in a shuffled order (the
+    kernel's appends race), per tile and range a private f32 tile summed
+    over the range's records, then the cluster merge, each CTA its part of
+    the pixels summed in rank order; dT starts as NaN, so an entry no CTA
+    writes shows."""
+    v, c = proj.shape[0], ct.shape[-1]
+    world = bp._window_world(dim, interval, origin.float(), voxel_size, "cpu")
+    d_all = ct.reshape(-1, c).float() / count.reshape(-1).clamp(min=1.0)[:, None]
+    grad = torch.full((v, h * w, c), float("nan"))
+    rng = np.random.default_rng(seed)
+    for view in range(v):
+        u, vv, m = bp.project_to_view(world, proj[view, 0].float(), h, w)
+        rows = torch.from_numpy(rng.permutation(m.nonzero()[:, 0].numpy()))
+        iu, iv = torch.floor(u[rows]).long(), torch.floor(vv[rows]).long()
+        du, dv = u[rows] - torch.floor(u[rows]), vv[rows] - torch.floor(vv[rows])
+        corners = [(iu, iv, (1 - du) * (1 - dv), torch.ones_like(iu, dtype=torch.bool)),
+                   (iu + 1, iv, du * (1 - dv), iu + 1 <= w - 1),
+                   (iu, iv + 1, (1 - du) * dv, iv + 1 <= h - 1),
+                   (iu + 1, iv + 1, du * dv, (iu + 1 <= w - 1) & (iv + 1 <= h - 1))]
+        nrec = len(rows)
+        part = -(-nrec // plan.ranges)
+        for sl in range(c // plan.cs):
+            c0 = sl * plan.cs
+            tiles = []
+            for rank in range(plan.ranges):
+                i0 = min(nrec, rank * part)
+                i1 = min(nrec, i0 + part)
+                tile = torch.zeros(h * w, plan.cs)
+                d = d_all[rows[i0:i1], c0:c0 + plan.cs]
+                for pu, pv, wq, ok in corners:
+                    ok = ok[i0:i1]
+                    tile.index_add_(0, (pv * w + pu)[i0:i1][ok],
+                                    wq[i0:i1][ok, None] * d[ok])
+                tiles.append(tile)
+            pp = -(-(h * w) // plan.ranges)
+            for rank in range(plan.ranges):
+                p0, p1 = min(h * w, rank * pp), min(h * w, (rank + 1) * pp)
+                acc = tiles[0][p0:p1]
+                for t in tiles[1:]:
+                    acc = acc + t[p0:p1]
+                grad[view, p0:p1, c0:c0 + plan.cs] = acc
+    return grad
+
+
+@pytest.mark.parametrize("dim,interval,c,cs,ranges", [
+    ((10, 12, 9), 1, 24, 8, 3),    # ragged ranges, rows of 3 slices
+    ((8, 8, 8), 2, 16, 16, 1),     # one range, no cluster
+    ((12, 12, 12), 1, 8, 2, 5),    # 4 slices, 5 ranges
+])
+def test_tile_partition_emulation_matches_the_plain_backward(dim, interval, c,
+                                                             cs, ranges):
+    """The view tiles' partition (records in any order, ranges, private
+    tiles, the cluster merge) gives window_backward_plain to 1e-5 of its
+    largest entry, every entry written."""
+    h, w, v = 9, 11, 4
+    rng = np.random.default_rng(3)
+    origin = torch.tensor([[0.0013, 0.0027, 0.0031]])
+    proj = _cameras(v, h, w)
+    feats = torch.from_numpy(rng.standard_normal((v, 1, h, w, c)).astype(np.float32))
+    count = bp.back_project_window_plain(dim, interval, origin, 0.05, feats, proj)[1]
+    ct = torch.from_numpy(rng.standard_normal((*dim, c)).astype(np.float32)).to(torch.bfloat16)
+    want = bp.window_backward_plain(dim, interval, origin, 0.05, proj, count, ct, h, w)
+    plan = bp.plan_tile(c, h, w, v, cs, ranges)
+    assert (count > 0).sum() > 0.3 * count.numel() and (count == 0).any()
+    for seed in (0, 1):
+        got = _emulate_tiles(dim, interval, origin, 0.05, proj, count, ct, h, w,
+                             plan, seed)
+        assert not torch.isnan(got).any()
+        err = (got - want).abs().max().item()
+        assert err <= 1e-5 * want.abs().max().item(), err

@@ -184,6 +184,9 @@ def test_card_holds_the_ctas_the_plan_assumes(cuda, extent, c, h, w, mode):
     assert bp.occupancy(plan, mode) == plan.ctas_per_sm
     plan = bp.plan_backward(extent, c, h, w, 9, mode)
     assert bp.occupancy(plan, mode) == plan.ctas_per_sm
+    if isinstance(plan, bp.TilePlan):  # stage 0: its clusters in one wave
+        assert bp.tile_occupancy(plan)[1] >= plan.tiles
+        assert bp.visible_occupancy(plan) == plan.visible_ctas_per_sm
 
 
 def test_kernel_rejects_bad_input(cuda):
@@ -307,8 +310,9 @@ def test_backward_kernel_every_brick_and_split(cuda, monkeypatch, border):
     """Every brick and channel split (vectors per CTA) the window mean's
     backward plan may take agrees with the plain backward, and so do a box
     of 0 pixels (every brick-view scatters straight into the gradient) and
-    the per-voxel kernel; `border`: voxels exactly on the last pixel column
-    and row of view 0 and one past them."""
+    every view-tile plan (channels per tile x ranges); `border`: voxels
+    exactly on the last pixel column and row of view 0 and one past
+    them."""
     run, want, extent, c, h, w = (_window_backward_case(cuda, (12, 12, 12), 40, 10, 11,
                                                         border=True) if border
                                   else _window_backward_case(cuda))
@@ -328,13 +332,24 @@ def test_backward_kernel_every_brick_and_split(cuda, monkeypatch, border):
                     assert stats[0] == 0 and stats[1] > 0
                 else:
                     assert stats[0] > 0
-    monkeypatch.setattr(bp, "plan_backward", lambda *_: bp.per_voxel_plan(
-        math.prod(extent), c, bp.WINDOW_MEAN))
-    stats = torch.zeros(3, dtype=torch.int64, device=cuda)
-    got = run(stats=stats)
-    torch.cuda.synchronize()
-    _close(got.reshape(want.shape), want)
-    assert int(stats.sum()) == 0  # the per-voxel kernel keeps no tallies
+    _every_tile_plan(monkeypatch, run, want, extent, c, h, w)
+
+
+def _every_tile_plan(monkeypatch, run, want, extent, c, h, w):
+    """The view-tile backward at every channel slice and number of ranges:
+    within 1e-4 of the plain backward, every visible pair taken once."""
+    visible = None
+    for cs in bp.tile_channel_choices(c, h, w):
+        for ranges in range(1, bp.MAX_CLUSTER + 1):
+            plan = bp.plan_tile(c, h, w, 4, cs, ranges)
+            monkeypatch.setattr(bp, "plan_backward", lambda *_, plan=plan: plan)
+            stats = torch.zeros(3, dtype=torch.int64, device="cuda")
+            got = run(stats=stats)
+            torch.cuda.synchronize()
+            _close(got.reshape(want.shape), want)
+            assert stats[1:].sum() == 0 and stats[0] > 0, (plan, stats)
+            visible = visible or int(stats[0])
+            assert int(stats[0]) == visible, (plan, stats)
 
 
 def test_backward_kernel_close_camera_takes_both_paths(cuda, monkeypatch):
@@ -356,6 +371,47 @@ def test_backward_kernel_close_camera_takes_both_paths(cuda, monkeypatch):
     _close(got.reshape(want.shape), want)
 
 
+@pytest.mark.parametrize("dim,c,h,w,depth", [
+    ((11, 13, 9), 24, 15, 20, 1.2),   # ragged window, lists not a multiple of any range
+    ((16, 16, 16), 16, 10, 11, 0.5),  # close camera: corners on the right and bottom edges
+    ((7, 5, 3), 80, 6, 7, 1.2),       # few records per range, 16-channel tiles
+])
+def test_tile_backward_kernel_every_plan(cuda, monkeypatch, dim, c, h, w, depth):
+    """The window mean's view-tile backward at every plan it may take
+    agrees with the plain backward: ragged record ranges (lists whose
+    length no number of ranges divides), a camera so close that visible
+    voxels' corners fall past the right and bottom edges, and lists of a
+    few records per range."""
+    run, want, extent, c, h, w = _window_backward_case(cuda, dim, c, h, w,
+                                                       depth=depth)
+    _every_tile_plan(monkeypatch, run, want, extent, c, h, w)
+
+
+def test_tile_backward_kernel_on_the_frustum_border(cuda, monkeypatch):
+    """Voxels exactly on the last pixel column and row of view 0 (in
+    frustum, their right and bottom corners skipped) and one past them
+    (out): the view tiles at every plan agree with the plain backward."""
+    run, want, extent, c, h, w = _window_backward_case(cuda, (12, 12, 12), 40,
+                                                       10, 11, border=True)
+    _every_tile_plan(monkeypatch, run, want, extent, c, h, w)
+
+
+def test_tile_backward_writes_every_entry(cuda):
+    """The view tiles write dT whole (the wrapper allocates it with
+    torch.empty): filled with NaN in the allocator's cache first, the
+    gradient comes out finite and equal to the plain backward."""
+    run, want, extent, c, h, w = _window_backward_case(cuda, (24, 24, 24), 80,
+                                                       30, 40)
+    assert isinstance(bp.plan_backward(extent, c, h, w, 4), bp.TilePlan)
+    for _ in range(3):
+        junk = torch.full_like(want, float("nan"))
+        del junk
+        got = run()
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        _close(got.reshape(want.shape), want)
+
+
 @pytest.mark.parametrize("name", ["occ_init_variance", "stage0_window",
                                   "stage1_window", "stage2_window"])
 def test_backward_kernel_path_shapes(cuda, name):
@@ -374,7 +430,12 @@ def test_backward_kernel_path_shapes(cuda, name):
     torch.cuda.synchronize()
     _close(got.reshape(want.shape), want)
     plan = bp.plan_backward(case.extent, case.c, case.h, case.w, 9, case.mode)
-    assert plan.per_voxel or stats[0] > 0
+    if isinstance(plan, bp.TilePlan):  # stage 0: every visible pair once
+        assert stats.tolist() == [case.visible, 0, 0]
+    elif plan.per_voxel:  # the variance keeps no tallies
+        assert int(stats.sum()) == 0
+    else:
+        assert stats[0] > 0
 
 
 def test_train_epochs_launches_both_kernels_each_step(cuda, tmp_path):
