@@ -22,7 +22,9 @@ Phases (any failure exits non-zero before the result line):
      the card could take (bound_ms);
   3. the backward kernels at the same four shapes against the plain
      backward (f32 gradient of the tables, max abs error <= 1e-4 of its
-     largest entry: f32 atomics sum in a changing order); tally its
+     largest entry: f32 atomics sum in a changing order; REPEATS more
+     calls on the same inputs print how far they stray from the first,
+     which is what makes two training runs part ways); tally its
      brick-views where its plan takes bricks (stages 1-2: summed per pixel
      in shared memory and added once / scattered straight into the
      gradient / empty: the box path must run); where the window mean's
@@ -76,6 +78,17 @@ Phases (any failure exits non-zero before the result line):
      group; parameters move on each update and not between; 4 forward and
      4 backward kernel launches per step; the maps finite and growing.
      Prints step ms (step 0 and the median of steps 3-6) and peak GiB;
+  5a. the closed quality loop (the quality phase; tools/quality_run.py):
+     the tiny quality config trained 100 steps from each of the seeds 0,
+     1 and 2 over one synthetic scene's 3 fragments (a fresh recurrent
+     state each cycle), reconstructed and scored against the scene's
+     analytic GT after 48 and 100 steps. Fails unless every loss is
+     finite, every seed's loss at step 47 is below 0.7x its step-0 loss,
+     the median over the seeds clears the JAX package's floors (window
+     F-score > 0.5 after 48 steps; F-score > 0.4, a predicted instance and
+     PQ > 0.25 after 100) and every step launched 4 forward and 4
+     backward kernels. Prints [quality] (losses at steps 0/25/47/50/75/99,
+     the scores, ms per step, the phase's wall and launches);
   6. the CLI (eprecon_tpu_torch.main.main, in this process) at full width
      over a ScanNet-layout tree in a temporary directory that the port
      writes itself: tools/make_synthetic_scannet.write_scene, 2 textured
@@ -181,6 +194,7 @@ from typing import Optional
 REPO = Path(__file__).resolve().parent
 TOL = 1e-2                  # kernel vs plain, relative to max(1, |plain|)
 BACKWARD_TOL = 1e-4         # backward kernel vs plain, relative to max |plain|
+REPEATS = 4                 # backward calls on the same inputs, against the first
 TRAIN_STEPS = 6
 
 
@@ -286,6 +300,10 @@ def backward_phase(case_list, v, card):
             raise AssertionError(f"backward {case.name}: max abs err {err} > "
                                  f"{BACKWARD_TOL} x {scale}")
         in_box, direct, empty = stats.tolist()
+        # the f32 atomics add in the order the card schedules them: how far
+        # repeats on the same inputs stray from the first, reported
+        repeat_diff = max((case.backward().reshape(got.shape) - got).abs().max().item()
+                          for _ in range(REPEATS))
         plan = bp.plan_backward(case.extent, case.c, case.h, case.w, v,
                                 case.mode)
         tile = isinstance(plan, bp.TilePlan)
@@ -333,7 +351,8 @@ def backward_phase(case_list, v, card):
             source="eprecon_tpu_torch/csrc/back_project.cu",
             replaces="eprecon_tpu/ops/back_project.py:24",
             launches=0, max_abs_err=err, **t, key=[case.mode, case.n, case.c],
-            rel_err=err / scale, ctas_per_sm=ctas_per_sm,
+            rel_err=err / scale, repeat_max_abs_diff=repeat_diff,
+            ctas_per_sm=ctas_per_sm,
             plan_ctas_per_sm=plan.ctas_per_sm,
             brick_views=dict(in_box=in_box, direct=direct, empty=empty),
             launch_parameters=launch))
@@ -353,7 +372,8 @@ def backward_phase(case_list, v, card):
                    f"{plan.threads} cvec={plan.cvec} box_px={plan.box_px} "
                    f"smem={plan.smem_bytes} B")
         print(f"[backward] {case.name}: N={case.n} C={case.c} err={err:.3g} "
-              f"(max |plain| {scale:.3g}) ms={t['ms']:.4f} "
+              f"(max |plain| {scale:.3g}; {REPEATS} repeats within "
+              f"{repeat_diff:.3g} of the first) ms={t['ms']:.4f} "
               f"(profiled windows {t['profiler_windows']}; per kernel "
               + ", ".join(f"{k} {x:.4f}" for k, x in t["parts"].items())
               + f") call_ms={t['call_ms']:.4f} plain_ms={t['plain_ms']:.4f} "
@@ -1025,6 +1045,47 @@ def train_phase(card):
     return dict(step_ms=step_ms, steady_step_ms=steady, peak_gib=peak,
                 losses=losses, map_sizes=map_sizes, grad_norms=grad_norms,
                 reduced=reduced), dict(bp.launch_counts), dict(bp.backward_launch_counts)
+
+
+QUALITY_SEEDS = (0, 1, 2)
+QUALITY_REPORT = (0, 25, 47, 50, 75, 99)
+
+
+def quality_phase(card):
+    """The closed quality loop on the card: quality_run.run_seeds at each
+    seed, held to the JAX package's floors by the median over the seeds,
+    every step through the kernels."""
+    from eprecon_tpu_torch.ops import back_project as bp
+    from eprecon_tpu_torch.tools import quality_run as qr
+    from eprecon_tpu_torch.tools.quality_utils import tiny_cfg
+
+    t_phase = time.perf_counter()
+    bp.launch_counts.clear()
+    bp.backward_launch_counts.clear()
+    runs, bad = qr.run_seeds(
+        tiny_cfg(), QUALITY_SEEDS, device="cuda", report_at=QUALITY_REPORT,
+        log=lambda line: print(f"[quality] {line} | {card}", flush=True))
+    runs = [runs[s] for s in QUALITY_SEEDS]
+    med = qr.median_scores(runs)
+    wall = time.perf_counter() - t_phase
+    fwd, bwd = bp.total_launches(), bp.total_backward_launches()
+    print(f"[quality] median over seeds {list(QUALITY_SEEDS)}: window fscore "
+          f"after {qr.WINDOW_FSCORE_STEPS} "
+          f"{med[qr.WINDOW_FSCORE_STEPS, 'window_fscore']:.4f} (floor "
+          f"{qr.WINDOW_FSCORE_FLOOR}); after {qr.PQ_STEPS}: fscore "
+          f"{med[qr.PQ_STEPS, 'fscore']:.4f} (floor {qr.FSCORE_FLOOR}), PQ "
+          f"{med[qr.PQ_STEPS, 'PQ']:.4f} (floor {qr.PQ_FLOOR}), predicted "
+          f"instances {med[qr.PQ_STEPS, 'n_pred_inst']:.0f}; ms per step "
+          f"{[round(r['ms_per_step'], 1) for r in runs]}; launches forward "
+          f"{fwd} backward {bwd}; phase wall {wall:.1f} s | {card}", flush=True)
+    if bad:
+        raise AssertionError("quality: " + "; ".join(bad))
+    for r in runs:
+        r["launches"] = [sum(n[0] for n in r["launches"]),
+                         sum(n[1] for n in r["launches"])]
+    return dict(seeds=list(QUALITY_SEEDS), runs=runs, wall_s=wall,
+                median={f"{k[1]}@{k[0]}": v for k, v in med.items()},
+                launches=dict(forward=fwd, backward=bwd))
 
 
 def train_reference_phase(card):
@@ -2496,6 +2557,7 @@ def main() -> int:
           f"{spvcnn_res['wall_s']:.1f} s | {card}", flush=True)
     del served
     train_res, train_fwd, train_bwd = train_phase(card)
+    quality_res = quality_phase(card)
     for k in kern:
         key = tuple(k["key"])
         k["launches"] = int(launches.get(key, 0))
@@ -2545,7 +2607,7 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, build_s=build_s, ptxas=ptxas, kernels=kern, main_path=main_res,
-        jax_session=session_res, export=export_res, spvcnn=spvcnn_res, train=train_res, cli=cli_res, ddp=ddp_res, import_phase=import_res,
+        jax_session=session_res, export=export_res, spvcnn=spvcnn_res, train=train_res, quality=quality_res, cli=cli_res, ddp=ddp_res, import_phase=import_res,
         reference=ref),
         indent=1))
     print(json.dumps({"kernels": kern}))

@@ -27,7 +27,7 @@ class SubMConv3dDense(nn.Module):
     def __init__(self, in_ch: int, features: int, kernel: int = 3, dtype=BF16):
         super().__init__()
         self.Conv_0 = Conv(in_ch, features, (kernel,) * 3,
-                           padding=kernel // 2, dtype=dtype)
+                           padding=kernel // 2, dtype=dtype, xavier=True)
 
     def forward(self, x, mask):
         return mask3(self.Conv_0(mask3(x, mask)), mask)

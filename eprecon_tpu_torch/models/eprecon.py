@@ -391,8 +391,10 @@ class EPRecon(nn.Module):
 
     def __init__(self, cfg: ModelConfig, use_running_average: bool = False,
                  seed: int = 0):
-        """Parameters are random from `seed` (Xavier convs and heads, flax's
-        lecun-normal for the other dense layers); load trained or JAX-made
+        """Parameters are random from `seed`, each drawn from the
+        initialiser its flax module names (Xavier for the submanifold 3D
+        convs, the heads and attention, flax's truncated lecun-normal for
+        the other convs and dense layers); load trained or JAX-made
         weights with convert.variables_to_torch."""
         super().__init__()
         self.cfg = cfg

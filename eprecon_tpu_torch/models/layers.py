@@ -44,6 +44,14 @@ def _xavier_(w: torch.Tensor, fan_in: int, fan_out: int,
         w.uniform_(-bound, bound, generator=generator)
 
 
+def _lecun_normal_(w: torch.Tensor, fan_in: int,
+                   generator: Optional[torch.Generator]):
+    """flax's default kernel init: variance 1 / fan_in from a normal
+    truncated at two standard deviations (rescaled to keep the variance)."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
+
+
 class Conv(nn.Module):
     """flax nn.Conv / nn.ConvTranspose on channels-last input.
 
@@ -56,22 +64,27 @@ class Conv(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, kernel: Sequence[int],
                  stride: int = 1, padding: int = 0, groups: int = 1,
                  bias: bool = True, dtype: Dtype = None,
-                 transpose: bool = False):
+                 transpose: bool = False, xavier: bool = False):
         super().__init__()
         self.nd = len(kernel)
         self.stride, self.padding, self.groups = stride, padding, groups
-        self.dtype, self.transpose = dtype, transpose
+        self.dtype, self.transpose, self.xavier = dtype, transpose, xavier
         shape = ((in_ch, out_ch // groups) if transpose
                  else (out_ch, in_ch // groups)) + tuple(kernel)
         self.weight = nn.Parameter(torch.empty(shape))
         self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        """Xavier-uniform weights (the 3D blocks' init), zero bias."""
+        """Xavier-uniform (the submanifold 3D convs' init), or flax's
+        default lecun-normal (truncated) over the kernel's fan-in; zero
+        bias."""
         rf = math.prod(self.weight.shape[2:])
         a, b = self.weight.shape[:2]
         cin, cout = (a, b) if self.transpose else (b, a)
-        _xavier_(self.weight, cin * rf, cout * rf, generator)
+        if self.xavier:
+            _xavier_(self.weight, cin * rf, cout * rf, generator)
+        else:
+            _lecun_normal_(self.weight, cin * rf, generator)
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
@@ -111,9 +124,7 @@ class Dense(nn.Module):
         if self.xavier:
             _xavier_(self.weight, in_f, out_f, generator)
         else:
-            std = math.sqrt(1.0 / in_f) / 0.87962566103423978
-            nn.init.trunc_normal_(self.weight, 0.0, std, -2 * std, 2 * std,
-                                  generator=generator)
+            _lecun_normal_(self.weight, in_f, generator)
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 

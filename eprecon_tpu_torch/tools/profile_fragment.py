@@ -1,6 +1,7 @@
 """Where one fragment's time goes on the GPU, served or trained.
 
-    python -m eprecon_tpu_torch.tools.profile_fragment [--train] [--out FILE]
+    python -m eprecon_tpu_torch.tools.profile_fragment [--train [--quality]]
+        [--out FILE]
 
 Serves warm-up fragments through StreamingReconstructor at the default
 config (random weights), then profiles one steady-state fragment with
@@ -10,7 +11,10 @@ as chip_smoke.py trains) and profiles one accumulation cycle (a micro-step
 and an update step); the Trainer's own ranges (train::forward,
 train::backward, train::optimizer) give their host wall time, and the
 backward's device time is what the kernels of the cycle take beyond the
-forward's and the optimizer's (and the uploads'). Top-level modules and the post-processing steps are
+forward's and the optimizer's (and the uploads'). With --quality it
+trains the quality loop's tiny config over its scene's three fragments
+instead (tools/quality_run.py: accumulation 1, the config's thresholds)
+and profiles two steps. Top-level modules and the post-processing steps are
 wrapped in named ranges through forward hooks (the model code carries no
 instrumentation), so the report gives, per layer, the device time of the
 kernels it launched, plus the device busy share of the fragment and the
@@ -36,6 +40,9 @@ from eprecon_tpu_torch.inference import pipeline
 from eprecon_tpu_torch.inference.pipeline import StreamingReconstructor
 from eprecon_tpu_torch.models.eprecon import EPRecon
 from eprecon_tpu_torch.ops import grid
+from eprecon_tpu_torch.tools.quality_utils import (build_scene_and_fragments,
+                                                   tiny_cfg)
+from eprecon_tpu_torch.train.loop import _scene_origin, fragment_to_device_args
 from eprecon_tpu_torch.train.state import Trainer, fragment_tensors
 
 
@@ -70,6 +77,8 @@ def main(argv=None) -> int:
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--train", action="store_true",
                     help="profile training micro-steps instead of serving")
+    ap.add_argument("--quality", action="store_true",
+                    help="with --train: the quality loop's tiny config")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_fragment needs CUDA")
@@ -82,12 +91,14 @@ def main(argv=None) -> int:
             cfg, model=dataclasses.replace(cfg.model, thresholds=(-100.0,) * 3,
                                            occ_init_threshold=0.0),
             train=dataclasses.replace(cfg.train, accumulation_steps=2))
+    if args.quality:
+        cfg = tiny_cfg()
     m = cfg.model
     scene = make_scene(0)
     n_profiled = 2 if args.train else 1
     frags = [make_fragment(n_vox=m.n_vox, voxel_size=m.voxel_size, scene=scene,
                            start_angle=0.3 * i)
-             for i in range(args.warmup + n_profiled)]
+             for i in range(0 if args.quality else args.warmup + n_profiled)]
     model = EPRecon(m, seed=cfg.seed)
     layers = (["backbone2d", "backbone_occ_pano", "neucon_net.initialization"]
               + [f"neucon_net.{p}_{i}" for i in range(m.n_layer)
@@ -101,7 +112,22 @@ def main(argv=None) -> int:
     pipeline.fuse_tsdf_direct = _wrap(pipeline.fuse_tsdf_direct,
                                       "fuse_tsdf_direct")
 
-    if args.train:
+    if args.quality:
+        trainer = Trainer(cfg, model, steps_per_epoch=100)
+        _, _, samples = build_scene_and_fragments(cfg)
+        origin = _scene_origin(cfg, samples[0])
+        step_args = [fragment_to_device_args(cfg, d, origin, trainer.device)
+                     for d in samples]
+        # the loop's order, a fresh recurrent state at each cycle's start
+        frags = [step_args[i % 3] for i in range(args.warmup + n_profiled)]
+        state = {"rec": None, "i": 0}
+
+        def feed(d):
+            if state["i"] % len(step_args) == 0:
+                state["rec"] = trainer.recurrent_state()
+            state["i"] += 1
+            state["rec"], _ = trainer.step(*d, state["rec"])
+    elif args.train:
         trainer = Trainer(cfg, model)
         state = {"rec": trainer.recurrent_state()}
         g_origin = grid.scene_global_origin(
@@ -161,7 +187,9 @@ def main(argv=None) -> int:
                   top_kernels=[dict(name=name, device_ms=ms, calls=calls)
                                for name, (ms, calls) in top],
                   kernel_launches=sum(c for _, c in per_kernel.values()),
-                  profiled_fragments=n_profiled, mode="train" if args.train else "serve")
+                  profiled_fragments=n_profiled,
+                  mode=("train quality" if args.quality else "train")
+                  if args.train else "serve")
     if args.train:
         # host wall ms of each range; the kernels launched on the main thread
         # inside it (the backward's run on the autograd engine's thread)

@@ -178,6 +178,33 @@ def test_jax_checkpoint_reader_needs_tensorstore_only_to_read(tmp_path):
     assert out.stdout.split() == ["ok"]
 
 
+def test_quality_tools_import_without_jax():
+    """The closed quality loop's modules (tools/quality_utils.py,
+    quality_run.py, production_quality_run.py) import with JAX, flax,
+    optax and eprecon_tpu made unimportable, build the quality scene's
+    config, and their CLIs parse their arguments without starting a run."""
+    code = (
+        "import sys\n"
+        f"for name in {BLOCKED!r}:\n"
+        "    sys.modules[name] = None\n"
+        "from eprecon_tpu_torch.tools import (production_quality_run as pq,\n"
+        "                                     quality_run as qr, quality_utils as qu)\n"
+        "cfg = qu.tiny_cfg()\n"
+        "assert cfg.model.n_vox == (32, 32, 32) and cfg.train.lr == 1e-3\n"
+        "assert (qr.PQ_STEPS, qr.PQ_FLOOR, qr.FSCORE_FLOOR) == (100, 0.25, 0.4)\n"
+        "for main in (qr.main, pq.main):\n"
+        "    try:\n"
+        "        main(['--help'])\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0, e\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "ok"
+
+
 def _imported_roots(path: Path):
     roots = set()
     for node in ast.walk(ast.parse(path.read_text())):

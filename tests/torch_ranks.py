@@ -64,7 +64,12 @@ def loop_config(logdir) -> tconfig.Config:
     """tests/test_train_cli.py's micro_cfg in the port's config: a 32^3
     window at 12 cm, the backbone and occupancy init frozen
     (finetune_layer 'init'), 2 epochs, no accumulation; a checkpoint and
-    a summary every epoch and step."""
+    a summary every epoch and step. Stage selection is threshold-free
+    (thresholds -100): at the default thresholds a fresh model aborts
+    every sample of the loop (frag_ok 0, the heads untrained) at about
+    half the draws, in both packages alike (tests/torch_micro_frag_ok.py:
+    JAX at 8 of PRNGKey(0-15), among them key 1; the port at 6 of seeds
+    0-15, among them seed 1, which this test draws)."""
     cfg = tconfig.default_config()
     pan = dataclasses.replace(cfg.model.panoptic, num_queries=16, dec_layers=2,
                               max_instances=8, hidden_dim=16, nheads=4,
@@ -72,7 +77,8 @@ def loop_config(logdir) -> tconfig.Config:
     m = dataclasses.replace(
         cfg.model, n_vox=(32, 32, 32), voxel_size=0.12,
         voxel_capacity=(512, 2048, 8192), global_extent=(64, 64, 32),
-        min_init_voxels=100, min_stage_voxels=50, panoptic=pan)
+        min_init_voxels=100, min_stage_voxels=50, thresholds=(-100.0,) * 3,
+        panoptic=pan)
     t = dataclasses.replace(cfg.train, finetune_layer="init", epochs=2,
                             accumulation_steps=1)
     return dataclasses.replace(cfg, model=m, train=t, logdir=str(logdir),
