@@ -5,6 +5,8 @@
     python3 chip_smoke.py --ddp-phase    # the ddp phase alone (several cards)
     python3 chip_smoke.py --serve-artifact ARTIFACT REQUESTS RESULTS
                                          # the export phase's model-free server
+    python3 chip_smoke.py --quality-phase RESULTS
+                                         # the quality phase's process
 
 Phases (any failure exits non-zero before the result line):
   1. build csrc/back_project.cu (forward and backward kernels) for sm_90a
@@ -21,10 +23,12 @@ Phases (any failure exits non-zero before the result line):
      version, an F.grid_sample yardstick (library_ms) and the least time
      the card could take (bound_ms);
   3. the backward kernels at the same four shapes against the plain
-     backward (f32 gradient of the tables, max abs error <= 1e-4 of its
-     largest entry: f32 atomics sum in a changing order; REPEATS more
-     calls on the same inputs print how far they stray from the first,
-     which is what makes two training runs part ways); tally its
+     backward (f32 gradient of the tables): both sum in 64-bit fixed point
+     (each term rounded once at the scale 2^e, integer sums, one
+     conversion), so the kernel must equal the plain version bit for bit,
+     and REPEATS more calls on the same inputs must equal the first bit
+     for bit (it prints the relative error beside it, and e with the
+     resolution 2^-e it gives); tally its
      brick-views where its plan takes bricks (stages 1-2: summed per pixel
      in shared memory and added once / scattered straight into the
      gradient / empty: the box path must run); where the window mean's
@@ -78,17 +82,26 @@ Phases (any failure exits non-zero before the result line):
      group; parameters move on each update and not between; 4 forward and
      4 backward kernel launches per step; the maps finite and growing.
      Prints step ms (step 0 and the median of steps 3-6) and peak GiB;
-  5a. the closed quality loop (the quality phase; tools/quality_run.py):
-     the tiny quality config trained 100 steps from each of the seeds 0,
+  5a. the closed quality loop (the quality phase; tools/quality_run.py),
+     in a process of its own (--quality-phase) in quality_run's
+     deterministic mode (torch's deterministic algorithms in raise mode,
+     cuDNN benchmark off, CUBLAS_WORKSPACE_CONFIG=:4096:8, set before any
+     CUDA work; the back-projection backward sums in fixed point), so a
+     run repeats bit for bit and its verdict is fixed for a tree: the tiny
+     quality config trained 100 steps from each of the seeds 0,
      1 and 2 over one synthetic scene's 3 fragments (a fresh recurrent
      state each cycle), reconstructed and scored against the scene's
-     analytic GT after 48 and 100 steps. Fails unless every loss is
+     analytic GT after 48 and 100 steps; then seed 0 again for 20 steps.
+     Fails unless every loss is
      finite, every seed's loss at step 47 is below 0.7x its step-0 loss,
      the median over the seeds clears the JAX package's floors (window
      F-score > 0.5 after 48 steps; F-score > 0.4, a predicted instance and
-     PQ > 0.25 after 100) and every step launched 4 forward and 4
-     backward kernels. Prints [quality] (losses at steps 0/25/47/50/75/99,
-     the scores, ms per step, the phase's wall and launches);
+     PQ > 0.25 after 100), every step launched 4 forward and 4
+     backward kernels, and every loss term of the 20-step repeat equals
+     the first run's bit for bit. Prints [quality] (losses at steps
+     0/25/47/50/75/99, seed 0's total loss at steps 0-19 to 9 digits, the
+     scores, ms per step, the repeat's verdict, the process's wall and
+     launches);
   6. the CLI (eprecon_tpu_torch.main.main, in this process) at full width
      over a ScanNet-layout tree in a temporary directory that the port
      writes itself: tools/make_synthetic_scannet.write_scene, 2 textured
@@ -193,7 +206,6 @@ from typing import Optional
 
 REPO = Path(__file__).resolve().parent
 TOL = 1e-2                  # kernel vs plain, relative to max(1, |plain|)
-BACKWARD_TOL = 1e-4         # backward kernel vs plain, relative to max |plain|
 REPEATS = 4                 # backward calls on the same inputs, against the first
 TRAIN_STEPS = 6
 
@@ -210,14 +222,16 @@ def ptxas_lines(so: Path):
             f = re.search(r"project_kernelILi(\d+)ELb([01])E", m.group(1))
             k = re.search(r"backward_kernelILi(\d+)E", m.group(1))
             t = re.search(r"backward_tileILi(\d+)E", m.group(1))
-            b = re.search(r"back_project_(backward_by_voxel|backward_visible)",
-                          m.group(1))
+            b = re.search(r"back_project_(backward_by_voxel|backward_visible|"
+                          r"backward_scale|backward_convert)", m.group(1))
             mode = lambda x: "variance" if x == "1" else "mean"
             name = (f"items={f.group(1)} {mode(f.group(2))}" if f
                     else f"backward items={k.group(1)} mean" if k
                     else f"backward view tile cs={t.group(1)} mean" if t
                     else {"backward_by_voxel": "backward per voxel variance",
-                          "backward_visible": "backward visible records mean"
+                          "backward_visible": "backward visible records mean",
+                          "backward_scale": "backward fixed-point scale",
+                          "backward_convert": "backward fixed-point conversion"
                           }[b.group(1)] if b
                     else m.group(1))
             entries.setdefault(name, [])
@@ -294,16 +308,22 @@ def backward_phase(case_list, v, card):
         stats = torch.zeros(3, dtype=torch.int64, device="cuda")
         got, want = case.backward(stats=stats), case.backward_plain()
         torch.cuda.synchronize()
+        got = got.reshape(want.shape)
         scale = want.abs().max().item()
-        err = (got.reshape(want.shape) - want).abs().max().item()
-        if not (scale > 0 and err <= BACKWARD_TOL * scale):
-            raise AssertionError(f"backward {case.name}: max abs err {err} > "
-                                 f"{BACKWARD_TOL} x {scale}")
+        err = (got - want).abs().max().item()
+        e, nan = case.backward_exponent().tolist()
+        resolution = 2.0 ** -e
+        if not (scale > 0 and not nan and torch.equal(got, want)):
+            raise AssertionError(f"backward {case.name}: the kernel differs from "
+                                 f"the plain version (max abs err {err}, scale "
+                                 f"{scale}, e {e}, nan {nan})")
         in_box, direct, empty = stats.tolist()
-        # the f32 atomics add in the order the card schedules them: how far
-        # repeats on the same inputs stray from the first, reported
-        repeat_diff = max((case.backward().reshape(got.shape) - got).abs().max().item()
-                          for _ in range(REPEATS))
+        # integer sums: repeats on the same inputs give the same bits
+        repeats = [case.backward().reshape(got.shape) for _ in range(REPEATS)]
+        repeat_diff = max((r - got).abs().max().item() for r in repeats)
+        if not all(torch.equal(r, got) for r in repeats):
+            raise AssertionError(f"backward {case.name}: a repeat differs from "
+                                 f"the first call by up to {repeat_diff}")
         plan = bp.plan_backward(case.extent, case.c, case.h, case.w, v,
                                 case.mode)
         tile = isinstance(plan, bp.TilePlan)
@@ -351,7 +371,9 @@ def backward_phase(case_list, v, card):
             source="eprecon_tpu_torch/csrc/back_project.cu",
             replaces="eprecon_tpu/ops/back_project.py:24",
             launches=0, max_abs_err=err, **t, key=[case.mode, case.n, case.c],
-            rel_err=err / scale, repeat_max_abs_diff=repeat_diff,
+            bitwise_equal=True, rel_err=err / scale,
+            repeat_max_abs_diff=repeat_diff, fixed_point_exponent=e,
+            resolution=resolution, max_plain=scale,
             ctas_per_sm=ctas_per_sm,
             plan_ctas_per_sm=plan.ctas_per_sm,
             brick_views=dict(in_box=in_box, direct=direct, empty=empty),
@@ -371,9 +393,12 @@ def backward_phase(case_list, v, card):
                    f"launched with brick={plan.brick} grid={plan.grid} threads="
                    f"{plan.threads} cvec={plan.cvec} box_px={plan.box_px} "
                    f"smem={plan.smem_bytes} B")
-        print(f"[backward] {case.name}: N={case.n} C={case.c} err={err:.3g} "
-              f"(max |plain| {scale:.3g}; {REPEATS} repeats within "
-              f"{repeat_diff:.3g} of the first) ms={t['ms']:.4f} "
+        print(f"[backward] {case.name}: N={case.n} C={case.c} bitwise equal to "
+              f"the plain version (err={err:.3g}, rel err {err / scale:.3g}, max "
+              f"|plain| {scale:.3g}); {REPEATS} repeats bitwise equal to the "
+              f"first (max diff {repeat_diff:.3g}); fixed point e={e}, "
+              f"resolution 2^-{e}={resolution:.3g} ({resolution / scale:.3g} "
+              f"of max |plain|) ms={t['ms']:.4f} "
               f"(profiled windows {t['profiler_windows']}; per kernel "
               + ", ".join(f"{k} {x:.4f}" for k, x in t["parts"].items())
               + f") call_ms={t['call_ms']:.4f} plain_ms={t['plain_ms']:.4f} "
@@ -1049,43 +1074,98 @@ def train_phase(card):
 
 QUALITY_SEEDS = (0, 1, 2)
 QUALITY_REPORT = (0, 25, 47, 50, 75, 99)
+QUALITY_REPEAT_STEPS = 20  # seed 0 again, every loss bitwise equal to its first run's
 
 
 def quality_phase(card):
-    """The closed quality loop on the card: quality_run.run_seeds at each
-    seed, held to the JAX package's floors by the median over the seeds,
-    every step through the kernels."""
-    from eprecon_tpu_torch.ops import back_project as bp
+    """The closed quality loop on the card, in a process of its own that
+    turns on quality_run's deterministic mode before any CUDA work
+    (`--quality-phase`, quality_checks). Returns its results."""
+    out = Path(tempfile.mkdtemp(prefix="eprecon_quality_"))
+    t0 = time.perf_counter()
+    try:
+        rc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"),
+                             "--quality-phase", str(out / "quality.json")],
+                            cwd=REPO).returncode
+        if rc != 0:
+            raise AssertionError(f"quality: the phase's process exited {rc}")
+        res = json.loads((out / "quality.json").read_text())
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    res["process_wall_s"] = time.perf_counter() - t0
+    print(f"[quality] process wall {res['process_wall_s']:.1f} s | {card}",
+          flush=True)
+    return res
+
+
+def quality_checks(out: Path) -> int:
+    """The quality phase's process: deterministic mode first, then
+    quality_run.run_seeds at each seed, held to the JAX package's floors by
+    the median over the seeds, every step through the kernels; then seed
+    0 again for QUALITY_REPEAT_STEPS steps, every loss equal to the first
+    run's bit for bit. Writes the results to `out`."""
     from eprecon_tpu_torch.tools import quality_run as qr
+
+    qr.deterministic_mode()
+    from eprecon_tpu_torch.ops import back_project as bp
+    from eprecon_tpu_torch.tools.bench_back_project import card_line
     from eprecon_tpu_torch.tools.quality_utils import tiny_cfg
 
+    card = card_line()
     t_phase = time.perf_counter()
     bp.launch_counts.clear()
     bp.backward_launch_counts.clear()
+    report = sorted(set(QUALITY_REPORT) | set(range(QUALITY_REPEAT_STEPS)))
     runs, bad = qr.run_seeds(
-        tiny_cfg(), QUALITY_SEEDS, device="cuda", report_at=QUALITY_REPORT,
+        tiny_cfg(), QUALITY_SEEDS, device="cuda", report_at=report,
         log=lambda line: print(f"[quality] {line} | {card}", flush=True))
     runs = [runs[s] for s in QUALITY_SEEDS]
     med = qr.median_scores(runs)
     wall = time.perf_counter() - t_phase
     fwd, bwd = bp.total_launches(), bp.total_backward_launches()
-    print(f"[quality] median over seeds {list(QUALITY_SEEDS)}: window fscore "
-          f"after {qr.WINDOW_FSCORE_STEPS} "
+    print(f"[quality] deterministic mode: median over seeds {list(QUALITY_SEEDS)}: "
+          f"window fscore after {qr.WINDOW_FSCORE_STEPS} "
           f"{med[qr.WINDOW_FSCORE_STEPS, 'window_fscore']:.4f} (floor "
           f"{qr.WINDOW_FSCORE_FLOOR}); after {qr.PQ_STEPS}: fscore "
           f"{med[qr.PQ_STEPS, 'fscore']:.4f} (floor {qr.FSCORE_FLOOR}), PQ "
           f"{med[qr.PQ_STEPS, 'PQ']:.4f} (floor {qr.PQ_FLOOR}), predicted "
           f"instances {med[qr.PQ_STEPS, 'n_pred_inst']:.0f}; ms per step "
           f"{[round(r['ms_per_step'], 1) for r in runs]}; launches forward "
-          f"{fwd} backward {bwd}; phase wall {wall:.1f} s | {card}", flush=True)
-    if bad:
-        raise AssertionError("quality: " + "; ".join(bad))
+          f"{fwd} backward {bwd}; seeds' wall {wall:.1f} s | {card}", flush=True)
+    seed = QUALITY_SEEDS[0]
+    first = [runs[0]["losses"][i]["total_loss"] for i in range(QUALITY_REPEAT_STEPS)]
+    print(f"[quality] seed {seed} total loss at steps 0-{QUALITY_REPEAT_STEPS - 1}: "
+          + " ".join(f"{x:.9g}" for x in first) + f" | {card}", flush=True)
+    t0 = time.perf_counter()
+    again = qr.train_and_score(tiny_cfg(), QUALITY_REPEAT_STEPS, (), seed,
+                               "cuda", range(QUALITY_REPEAT_STEPS))
+    differ = [i for i in range(QUALITY_REPEAT_STEPS)
+              if again["losses"][i] != runs[0]["losses"][i]]
+    repeat_s = time.perf_counter() - t0
+    print(f"[quality] seed {seed} again for {QUALITY_REPEAT_STEPS} steps "
+          f"({repeat_s:.1f} s): " + ("every loss term equal bit for bit to the "
+                                     "first run's" if not differ else
+                                     f"steps {differ} differ from the first run")
+          + f" | {card}", flush=True)
+    if differ:
+        i = differ[0]
+        bad.append(f"seed {seed} again: step {i} losses {again['losses'][i]} != "
+                   f"the first run's {runs[0]['losses'][i]}")
     for r in runs:
         r["launches"] = [sum(n[0] for n in r["launches"]),
                          sum(n[1] for n in r["launches"])]
-    return dict(seeds=list(QUALITY_SEEDS), runs=runs, wall_s=wall,
-                median={f"{k[1]}@{k[0]}": v for k, v in med.items()},
-                launches=dict(forward=fwd, backward=bwd))
+        r["losses"] = {str(k): v for k, v in r["losses"].items()}
+        r["scores"] = {str(k): v for k, v in r["scores"].items()}
+    out.write_text(json.dumps(dict(
+        seeds=list(QUALITY_SEEDS), runs=runs, wall_s=wall,
+        median={f"{k[1]}@{k[0]}": v for k, v in med.items()},
+        launches=dict(forward=fwd, backward=bwd), deterministic=True,
+        repeat=dict(seed=seed, steps=QUALITY_REPEAT_STEPS, equal=not differ,
+                    wall_s=repeat_s), failures=bad)))
+    if bad:
+        print("[quality] FAILED: " + "; ".join(bad), flush=True)
+        return 1
+    return 0
 
 
 def train_reference_phase(card):
@@ -2518,6 +2598,9 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository "
               "(eprecon_tpu_torch/ not found)", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--quality-phase"]:  # the quality phase's process
+        sys.path.insert(0, str(REPO))
+        return quality_checks(Path(sys.argv[2]))
     if sys.argv[1:2] == ["--ddp-rank"]:  # a rank of the ddp phase
         return ddp_rank(Path(sys.argv[2]), sys.argv[3:])
     if sys.argv[1:] == ["--ddp-phase"]:

@@ -20,10 +20,16 @@ adjoints), so a tracer records them and an exported program runs them. A
 tensor on the CPU takes the plain versions; a CUDA tensor launches the
 kernels or raises. The plain forward does the kernel's arithmetic in the
 kernel's order (f32 sums over bf16 tables, f32 projection without fused
-multiply-adds), so on the card the two agree bit for bit; the backwards
-scatter with f32 atomics (kernel) or index_add_ (plain) and agree to f32
-rounding. The JAX version sums bf16 terms in bf16 and accumulates its
-gradient in bf16; the port keeps both in f32 and rounds once.
+multiply-adds), so on the card the two agree bit for bit. The backwards
+sum in 64-bit fixed point (`fixed_point_exponent`): each term w_q * d is
+formed in f32 as the forward's arithmetic forms it, rounded once to an
+integer at the scale 2**e, and every later addition is an integer one,
+which no order changes; the table is converted to f32 once. So a
+backward repeats bit for bit on the card, and the kernels (integer
+atomics) and the plain versions (an int64 index_add_) agree bit for bit.
+The JAX version sums bf16 terms in bf16 and accumulates its gradient in
+bf16; the port keeps both in f32 (the gradient at a resolution of 2**-e)
+and rounds once.
 """
 from __future__ import annotations
 
@@ -92,12 +98,92 @@ def bilinear_sample_flat(table: torch.Tensor, row_offset, u: torch.Tensor,
     return torch.where(m[:, None], total, 0.0)
 
 
+# ---------------------------------------------------------------------------
+# the backward's fixed point
+# ---------------------------------------------------------------------------
+
+FIXED_BITS = 62  # N * (a bound of every term) * 2**e <= 2**FIXED_BITS
+MAX_EXPONENT = 126  # 2**e and 2**-e both normal f32
+
+
+def _ceil_log2(n: int) -> int:
+    return max(int(n) - 1, 0).bit_length()
+
+
+def fixed_point_exponent(n: int, max_ct: torch.Tensor,
+                         max_table: Optional[torch.Tensor] = None,
+                         views: int = 1) -> torch.Tensor:
+    """The scale 2**e at which the backward rounds its terms, and whether
+    its gradient is NaN: int32 [2] (e, nan), on max_ct's device, with no
+    host synchronisation. The kernels compute the same from the same
+    maxima (csrc/back_project.cu fixed_point).
+
+    e is formed only from order-free quantities: the maxima max_ct =
+    max |ct| and max_table = max |T| over the whole cotangent and table
+    (a maximum is exact in any order), their frexp exponents kc and kt
+    (|ct| < 2**kc, |T| < 2**kt) and the integer counts n (rows of the
+    cotangent) and views, never from a float sum, which another order
+    could move across a power of two.
+
+    No overflow. A row adds to a given entry of a view's table at most
+    once: its 4 corners are distinct pixels (a corner past the edge adds
+    a zero term), each weight <= 1. So an entry sums at most n terms,
+    each of magnitude <= B:
+      window mean: |w_q d| <= |d| <= max|ct|, d = ct / max(count, 1), so
+        B = max|ct| < 2**k with k = kc;
+      variance: s_v and the mean are bilinear samples, and a mean of
+        them, of table entries, so |g (s_v - mean)| <= 2 max|ct| *
+        2 max|T|, B < 2**k with k = kc + kt + 2.
+    e = min(FIXED_BITS - ceil(log2 n) - k, MAX_EXPONENT) makes
+    n * B * 2**e < 2**62; the f32 rounding of the products and the half
+    unit of each term's rounding stay far inside the factor 2 left to
+    the int64 limit 2**63. The resolution of an entry is 2**-e: at stage
+    2 (n = 884,736, ceil(log2 n) = 20) about max|ct| * 2**-42, and an
+    entry of K terms is within K / 2 * 2**-e of their exact sum before
+    its one rounding to f32. A term below 2**-(MAX_EXPONENT + 1) (a
+    cotangent whose largest entry is under ~2**-85) rounds to 0.
+
+    NaN: a non-finite max_ct or max_table, or (variance) an intermediate
+    that could leave the f32 range (2 ct, a sum of views' samples or a
+    term of 2**127 or more), makes the whole table NaN. (JAX's gradient
+    is NaN only at the entries a non-finite term reaches.) e is then 0.
+    """
+    kc = torch.frexp(max_ct.float()).exponent
+    nan = ~torch.isfinite(max_ct)
+    k = kc
+    if max_table is not None:
+        kt = torch.frexp(max_table.float()).exponent
+        k = kc + kt + 2
+        nan = (nan | ~torch.isfinite(max_table) | (k > 127) | (kc > 126)
+               | (kt + max(_ceil_log2(views), 1) > 127))
+    e = (FIXED_BITS - _ceil_log2(n) - k).clamp(-MAX_EXPONENT, MAX_EXPONENT)
+    return torch.stack([torch.where(nan, 0, e), nan]).to(torch.int32)
+
+
+def _pow2(e: torch.Tensor) -> torch.Tensor:
+    """2**e as f32, exactly, for an int32 e in [-126, 127]."""
+    return torch.bitwise_left_shift(e + 127, 23).view(torch.float32)
+
+
+def fixed_to_float(acc: torch.Tensor, fixed: torch.Tensor) -> torch.Tensor:
+    """The int64 fixed-point table `acc` as f32: one rounding of each
+    entry, then times 2**-e (exact), or NaN everywhere where `fixed`
+    (fixed_point_exponent) says so."""
+    out = acc.to(torch.float32) * _pow2(-fixed[0])
+    return out.masked_fill_(fixed[1].bool(), float("nan"))
+
+
 def scatter_corners(grad_table: torch.Tensor, row_offset, u: torch.Tensor,
                     v: torch.Tensor, m: torch.Tensor, d: torch.Tensor,
-                    h: int, w: int) -> torch.Tensor:
+                    h: int, w: int, fixed: torch.Tensor) -> torch.Tensor:
     """The adjoint of `bilinear_sample_flat` for the table: add each
     sample's cotangent d [N, C], times its 4 corner weights, to the corner
-    rows of grad_table [B*H*W, C] f32, in place."""
+    rows of grad_table [B*H*W, C] int64, in place, in fixed point: each
+    term w_q * d is formed in f32 and rounded once to an integer at the
+    scale 2**e (half to even, as the kernels' __float2ll_rn), `fixed`
+    from fixed_point_exponent; the integer sums do not depend on their
+    order."""
+    scale = _pow2(fixed[0])
     u0 = torch.floor(u)
     v0 = torch.floor(v)
     du = u - u0
@@ -109,7 +195,7 @@ def scatter_corners(grad_table: torch.Tensor, row_offset, u: torch.Tensor,
         wgt = (du if cx else 1 - du) * (dv if cy else 1 - dv)
         wgt = torch.where((pu <= w - 1) & (pv <= h - 1) & m, wgt, 0.0)
         idx = row_offset + pv.clamp(max=h - 1) * w + pu.clamp(max=w - 1)
-        grad_table.index_add_(0, idx, wgt[:, None] * d)
+        grad_table.index_add_(0, idx, torch.round(wgt[:, None] * d * scale).long())
     return grad_table
 
 
@@ -139,15 +225,18 @@ def back_project_window_plain(dim, interval, origin, voxel_size, feats, proj,
 def window_backward_plain(dim, interval, origin, voxel_size, proj, count, ct,
                           h: int, w: int) -> torch.Tensor:
     """Gradient of the window mean for its [V, H*W, C] table, f32, given
-    the mean's cotangent ct [X, Y, Z, C] and the forward's view count."""
+    the mean's cotangent ct [X, Y, Z, C] and the forward's view count;
+    summed in fixed point (`scatter_corners`)."""
     vv, c = proj.shape[0], ct.shape[-1]
     world = _window_world(dim, interval, origin.float(), voxel_size, ct.device)
-    d = ct.reshape(-1, c).float() / count.reshape(-1, 1).clamp(min=1.0)
-    grad = torch.zeros(vv, h * w, c, device=ct.device)
+    ct = ct.reshape(-1, c).float()
+    fixed = fixed_point_exponent(ct.shape[0], ct.abs().amax())
+    d = ct / count.reshape(-1, 1).clamp(min=1.0)
+    grad = torch.zeros(vv, h * w, c, dtype=torch.int64, device=ct.device)
     for vi in range(vv):
         u, v, m = project_to_view(world, proj[vi, 0].float(), h, w)
-        scatter_corners(grad[vi], 0, u, v, m, d, h, w)
-    return grad
+        scatter_corners(grad[vi], 0, u, v, m, d, h, w, fixed)
+    return fixed_to_float(grad, fixed)
 
 
 def project_to_views(coords: torch.Tensor, valid: torch.Tensor,
@@ -227,17 +316,21 @@ def variance_backward_plain(coords, valid, origin, voxel_size, feats, proj,
     the variance's cotangent ct [K, C] and the forward's view count:
     ds_v = g * 2 (s_v - mean) / n per visible sample, g = ct where
     s2/n - mean^2 >= 0 (the gradient of torch's clamp) and 0 elsewhere,
-    scattered through the sample's corner weights."""
+    scattered through the sample's corner weights, in fixed point
+    (`scatter_corners`)."""
     vv, bb, h, w, c = feats.shape
     s1, s2, _ = _variance_sums(coords, valid, origin, voxel_size, feats, proj)
+    fixed = fixed_point_exponent(coords.shape[0], ct.float().abs().amax(),
+                                 feats.float().abs().amax(), vv)
     denom = count.clamp(min=1.0)[:, None]
     mean = s1 / denom
     g = torch.where(s2 / denom - mean * mean >= 0, 2 * ct.float() / denom, 0.0)
-    grad = torch.zeros(vv, bb * h * w, c, device=feats.device)
+    grad = torch.zeros(vv, bb * h * w, c, dtype=torch.int64, device=feats.device)
     for vi, (u, v, m, s, row_offset) in enumerate(_variance_views(
             coords, valid, origin, voxel_size, feats, proj)):
-        scatter_corners(grad[vi], row_offset, u, v, m, g * (s - mean), h, w)
-    return grad
+        scatter_corners(grad[vi], row_offset, u, v, m, g * (s - mean), h, w,
+                        fixed)
+    return fixed_to_float(grad, fixed)
 
 
 # ---------------------------------------------------------------------------
@@ -265,7 +358,7 @@ REGS_PER_THREAD = {(WINDOW_MEAN, 1): 64, (WINDOW_MEAN, 2): 72,
 BWD_REGS_PER_THREAD = 64
 TILE_REGS_PER_THREAD = {2: 64, 4: 64, 8: 64, 16: 64}
 VISIBLE_REGS_PER_THREAD = 32
-PER_VOXEL_REGS_PER_THREAD = 64
+PER_VOXEL_REGS_PER_THREAD = 80
 SMEM_MAX = 232448                 # the most one CTA can opt in to (227 KB)
 MIN_BRICK = 16                    # voxels; smaller only when channels force it
 BRICKS = ((8, 8, 8), (4, 8, 8), (4, 4, 8), (4, 4, 4), (2, 4, 4), (2, 2, 4),
@@ -500,8 +593,9 @@ def plan_backward_brick(extent: Tuple[int, int, int], c: int, h: int, w: int,
 
 def tile_regions(h: int, w: int, cs: int):
     """Bytes of each shared-memory region of one view-tile CTA, in the order
-    of `TileLayout` in csrc/back_project.cu: the f32 gradient tile."""
-    return dict(tile=h * w * cs * 4)
+    of `TileLayout` in csrc/back_project.cu: the int64 fixed-point gradient
+    tile."""
+    return dict(tile=h * w * cs * 8)
 
 
 def _smem_ctas(smem_bytes: int) -> int:
@@ -625,19 +719,20 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.bp_backward.argtypes = [p, p, p, p, i, i, i, i,
                                     ctypes.c_longlong, i, i, i, i,
                                     ctypes.c_float, i, i, i, i, i, i,
-                                    ctypes.POINTER(ctypes.c_longlong), p, p, p]
+                                    ctypes.POINTER(ctypes.c_longlong),
+                                    p, p, p, p, p]
         lib.bp_backward.restype = ctypes.c_int
         lib.bp_backward_tiles.argtypes = [
             p, p, p, p, i, i, i, i, ctypes.c_longlong, i, i, i,
             ctypes.c_float, i, i, i, i, ctypes.POINTER(ctypes.c_longlong),
-            p, p, p, p, p, p]
+            p, p, p, p, p, p, p]
         lib.bp_backward_tiles.restype = ctypes.c_int
         lib.bp_tile_occupancy.argtypes = [i, i, i, i, i, ctypes.POINTER(i),
                                           ctypes.POINTER(i)]
         lib.bp_tile_occupancy.restype = ctypes.c_int
         lib.bp_backward_by_voxel.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
                                              i, ctypes.c_longlong,
-                                             ctypes.c_float, p, p]
+                                             ctypes.c_float, p, p, p, p]
         lib.bp_backward_by_voxel.restype = ctypes.c_int
     return lib
 
@@ -712,8 +807,11 @@ def _launch_backward(mode: int, table: Optional[torch.Tensor],
                      dims: Sequence[int] = (0, 0, 0), interval: int = 1,
                      voxel_size: float = 1.0,
                      stats: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The backward kernel: the table gradient [V, B*H*W, C] f32 given the
-    cotangent ct [N, C] bf16 and the forward's count [N] f32. table: the
+    """The backward kernels: the table gradient [V, B*H*W, C] f32 given the
+    cotangent ct [N, C] bf16 and the forward's count [N] f32, summed in
+    fixed point (the library first reduces max |ct|, and max |table| for
+    the variance, into a scratch it zeroes; a design that adds in device
+    memory adds into an int64 scratch and converts it last). table: the
     bf16 [V, B*H*W, C] features (variance only; the mean does not read
     them); proj, origin, coords, valid as for `_launch`; stats: None, or
     int64 [3] that the window mean's kernel adds its tallies to: a brick
@@ -743,9 +841,11 @@ def _launch_backward(mode: int, table: Optional[torch.Tensor],
     lib = _library()
     ptr = lambda t: None if t is None else t.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
+    # every entry of grad is written by the tiles' merge or the conversion
+    # pass, every entry of acc zeroed by the reduction: no fill here
+    grad = torch.empty(v, bb * h * w, c, dtype=torch.float32, device=dev)
+    maxima = torch.empty(2, dtype=torch.int32, device=dev)
     if isinstance(plan, TilePlan):
-        # every entry is written by its tile's cluster: no zero fill
-        grad = torch.empty(v, h * w, c, dtype=torch.float32, device=dev)
         nrec = torch.zeros(v, dtype=torch.int32, device=dev)
         rec_ru = torch.empty(v * n, 2, dtype=torch.int32, device=dev)
         rec_w = torch.empty(v * n, 4, dtype=torch.float32, device=dev)
@@ -754,23 +854,24 @@ def _launch_backward(mode: int, table: Optional[torch.Tensor],
             v, h, w, c, n, dims[1], dims[2], interval, float(voxel_size),
             plan.cs, plan.ranges, plan.threads, plan.ctas_per_sm,
             (ctypes.c_longlong * len(plan.layout))(*plan.layout),
-            nrec.data_ptr(), rec_ru.data_ptr(), rec_w.data_ptr(),
-            grad.data_ptr(), ptr(stats), stream)
+            maxima.data_ptr(), nrec.data_ptr(), rec_ru.data_ptr(),
+            rec_w.data_ptr(), grad.data_ptr(), ptr(stats), stream)
     elif plan.per_voxel:
-        grad = torch.zeros(v, bb * h * w, c, dtype=torch.float32, device=dev)
+        acc = torch.empty(grad.shape, dtype=torch.int64, device=dev)
         rc = lib.bp_backward_by_voxel(
             table.data_ptr(), proj.data_ptr(), origin.data_ptr(),
             coords.data_ptr(), valid.data_ptr(), ct.data_ptr(),
             count.data_ptr(), v, bb, h, w, c, n, float(voxel_size),
-            grad.data_ptr(), stream)
+            maxima.data_ptr(), acc.data_ptr(), grad.data_ptr(), stream)
     else:
-        grad = torch.zeros(v, h * w, c, dtype=torch.float32, device=dev)
+        acc = torch.empty(grad.shape, dtype=torch.int64, device=dev)
         rc = lib.bp_backward(
             proj.data_ptr(), origin.data_ptr(), ct.data_ptr(), count.data_ptr(),
             v, h, w, c, n, *dims, interval, float(voxel_size), *plan.brick,
             plan.cvec, plan.threads, plan.items,
             (ctypes.c_longlong * len(plan.layout))(*plan.layout),
-            grad.data_ptr(), ptr(stats), stream)
+            maxima.data_ptr(), acc.data_ptr(), grad.data_ptr(), ptr(stats),
+            stream)
     if rc != 0:
         raise RuntimeError(f"back_project backward launch failed: CUDA error {rc}")
     backward_launch_counts[(mode, n, c)] += 1

@@ -6,16 +6,19 @@ shapes of a full-width fragment, on one NVIDIA GPU.
 
 Per shape and direction: `ms`, the kernels' own device time per call (the
 durations of the call's `back_project_kernel` / `back_project_backward*`
-events under torch.profiler, summed per call: the window mean's view tiles
-launch a visible-records pass and the tile kernel; `parts` splits it by
-kernel), with 128 MB written between calls so the tables come from device
-memory, as they do in a fragment; only a profiled window with a record of
-every launch counts; `call_ms`, the wrapper's time per call (CUDA events
-around a run of Python calls; the brick and per-voxel backwards include
-zeroing their f32 gradient, the view tiles write it whole); the plain
-PyTorch version's and an F.grid_sample yardstick's times (the backward's:
-autograd of the yardstick for the same cotangent); and `bound_ms`, the
-least time the card could take.
+events under torch.profiler, summed per call: every backward first
+reduces max |ct| (`back_project_backward_scale`, which also zeroes the
+int64 fixed-point accumulator where the design keeps one), then the
+window mean's view tiles launch a visible-records pass and the tile
+kernel, the bricks and the variance's per-voxel kernel their kernel and
+the conversion pass (`back_project_backward_convert`); `parts` splits it
+by kernel), with 128 MB written between calls so the tables come from
+device memory, as they do in a fragment; only a profiled window with a
+record of every launch counts; `call_ms`, the wrapper's time per call
+(CUDA events around a run of Python calls); the plain PyTorch version's
+and an F.grid_sample yardstick's times (the backward's: autograd of the
+yardstick for the same cotangent); and `bound_ms`, the least time the
+card could take.
 `--root` names the checkout whose eprecon_tpu_torch is timed (default:
 the one holding this file), so that two versions of the kernel can be
 timed on one card: run this file as a script, once per root. `--shapes`
@@ -80,6 +83,7 @@ class Case:
     backward_library: Callable = None   # autograd of the yardstick
     backward_bytes: int = 0
     backward_ops: Tuple[int, int] = (0, 0)  # per visible pair x channel, per voxel x channel
+    backward_exponent: Callable = None  # the plain version's fixed-point (e, nan)
 
     def bound(self, v: int, direction: str = "forward"):
         """(least ms, what bounds it): bytes over 3.35 TB/s, f32 operations
@@ -202,8 +206,12 @@ def add_backward(case: Case, feats, proj, origin, count, world, dim, interval,
             count.reshape(dim), ct.reshape(*dim, c), h, w)
         nbytes = n * c * 2 + n * 4
         case.backward_ops = (8, 1)
-    # projections, origin, and dT written in f32
+    # projections, origin, and dT written once in f32: what the function
+    # needs, whatever the design adds in between
     case.backward_bytes = nbytes + v * 64 + 12 + v * h * w * c * 4
+    case.backward_exponent = functools.partial(
+        bp.fixed_point_exponent, n, ct.float().abs().amax(),
+        *((feats.float().abs().amax(), v) if coords is not None else ()))
     f_lib = feats[:, 0].permute(0, 3, 1, 2).float().contiguous().requires_grad_(True)
     lib_out = yardstick(f_lib, proj[:, 0].float(), world, h, w,
                         coords is not None)[0]

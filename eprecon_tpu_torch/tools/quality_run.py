@@ -9,7 +9,10 @@ tests/test_quality_loop.py:23-47 and tests/test_quality_pq.py:31-49).
 The device defaults to CUDA, as every entry point of the port. Each seed
 prints its loss at every `report_every` steps (and at step 47, which the
 loss-fall floor reads), then its scores after 48 and 100 steps and at
-the end.
+the end. `--deterministic` (`deterministic_mode`) makes a run on the card
+repeat bit for bit: the back-projection backward sums in fixed point, and
+torch's own ops take their deterministic algorithms, so two runs print
+identical lines.
 
 The floors are the JAX package's: the loss at step 47 below 0.7 x the
 loss at step 0 (tests/test_quality_loop.py:48), the window F-score above
@@ -24,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import os
 import sys
 import time
 from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
@@ -44,6 +48,22 @@ from eprecon_tpu_torch.train.state import Trainer
 LOSS_FALL_STEP, LOSS_FALL_RATIO = 47, 0.7
 WINDOW_FSCORE_STEPS, WINDOW_FSCORE_FLOOR = 48, 0.5
 PQ_STEPS, FSCORE_FLOOR, PQ_FLOOR = 100, 0.4, 0.25
+
+
+def deterministic_mode() -> None:
+    """torch's deterministic algorithms in raise mode (an op that has none
+    raises), cuDNN's benchmark off, and CUBLAS_WORKSPACE_CONFIG=:4096:8,
+    which torch reads when it makes its first cuBLAS handle: call it
+    before any CUDA work of the process. With it a training run on the
+    card repeats bit for bit (the back-projection kernels' sums are
+    order-free by themselves). The mode's NaN fill of every torch.empty
+    (a debugging aid for reads of memory never written, which nothing
+    here does) stays off: at the tiny config's host-bound step it is a
+    launch per allocation."""
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
 
 
 def train_and_score(cfg: Config, steps: int, score_at: Iterable[int] = (),
@@ -187,13 +207,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--seeds", default="0,1,2")
     ap.add_argument("--device", default=None)
     ap.add_argument("--deterministic", action="store_true",
-                    help="torch's deterministic algorithms, warning where an "
-                         "op has none (the back-projection kernels are as "
-                         "they are)")
+                    help="repeat bit for bit on the card: torch's "
+                         "deterministic algorithms, raising where an op "
+                         "has none (deterministic_mode)")
     a = ap.parse_args(argv)
     if a.deterministic:
-        torch.backends.cudnn.benchmark = False
-        torch.use_deterministic_algorithms(True, warn_only=True)
+        deterministic_mode()
     report = set(range(0, a.steps, a.report_every)) | {a.steps - 1}
     _, bad = run_seeds(tiny_cfg(), [int(s) for s in a.seeds.split(",")],
                        a.steps, a.device, report)

@@ -432,15 +432,23 @@ def test_tile_plan_covers_every_view_channel_and_record_once(m):
 def test_tile_plan_takes_the_most_ctas_in_one_wave(name):
     """view_tile_plan: of the plans whose grid fits one wave of resident
     CTAs, the largest grid (the most channels per tile among equals); at
-    stage 0, 16 channels x 5 ranges (225 CTAs, 2 per SM)."""
+    stage 0, 8 channels x 2 ranges (180 CTAs, 2 per SM: the int64 tile of
+    16 channels, 153.6 KB, leaves room for one CTA per SM); at stage 2
+    none (19,200 pixels of 2 int64 channels exceed a CTA's shared memory:
+    its window takes bricks)."""
     extent, c, h, w, b, mode = ALL[name]
+    if not bp.tile_channel_choices(c, h, w):
+        assert name == "stage2_window"
+        with pytest.raises(ValueError, match="no view tile fits"):
+            bp.view_tile_plan(c, h, w, V)
+        return
     plan = bp.view_tile_plan(c, h, w, V)
     one_wave = [p for p in _tile_plans(name)
                 if p.grid <= p.ctas_per_sm * bp.SM_COUNT]
     assert plan.grid <= plan.ctas_per_sm * bp.SM_COUNT
     assert all((p.grid, p.cs) <= (plan.grid, plan.cs) for p in one_wave)
     if name == "stage0_window":
-        assert (plan.cs, plan.ranges, plan.grid, plan.ctas_per_sm) == (16, 5, 225, 2)
+        assert (plan.cs, plan.ranges, plan.grid, plan.ctas_per_sm) == (8, 2, 180, 2)
 
 
 def test_tile_layout_rotation_is_a_permutation_of_each_pixel():

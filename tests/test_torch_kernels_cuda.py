@@ -197,17 +197,16 @@ def test_kernel_rejects_bad_input(cuda):
 
 
 # ---------------------------------------------------------------------------
-# backward kernel against the plain backward (f32 atomics: 1e-4 of the scale)
+# backward kernel against the plain backward: both sum in 64-bit fixed
+# point (integer sums in any order), so they agree bit for bit
 # ---------------------------------------------------------------------------
 
-BWD_TOL = 1e-4
 
-
-def _close(got, want):
+def _equal(got, want):
     scale = want.abs().max().item()
     assert scale > 0
     err = (got.float() - want.float()).abs().max().item()
-    assert err <= BWD_TOL * scale, (err, scale)
+    assert torch.equal(got.float(), want.float()), (err, scale)
 
 
 def _border_proj(h, w, v):
@@ -245,7 +244,7 @@ def test_window_backward_kernel(cuda, dim, interval, voxel, c):
     torch.cuda.synchronize()
     assert bp.total_backward_launches() == before + 1
     assert (count == 0).any() and (count > 0).any()
-    _close(got.reshape(want.shape), want)
+    _equal(got.reshape(want.shape), want)
 
 
 @pytest.mark.parametrize("c", [8, 32])
@@ -279,7 +278,7 @@ def test_variance_backward_kernel_two_batches(cuda, c):
     assert bp.total_backward_launches() == before + 2
     assert through_autograd.dtype == torch.bfloat16
     assert (count >= 2).any() and (count[~valid] == 0).all()
-    _close(got, want)
+    _equal(got, want)
     assert got.reshape(4, 2, h, w, c)[:, 1].abs().max() > 0
 
 
@@ -326,7 +325,7 @@ def test_backward_kernel_every_brick_and_split(cuda, monkeypatch, border):
                 stats = torch.zeros(3, dtype=torch.int64, device=cuda)
                 got = run(stats=stats)
                 torch.cuda.synchronize()
-                _close(got.reshape(want.shape), want)
+                _equal(got.reshape(want.shape), want)
                 assert int(stats.sum()) == plan.grid * 4, (plan, stats)
                 if px == 0:
                     assert stats[0] == 0 and stats[1] > 0
@@ -337,7 +336,7 @@ def test_backward_kernel_every_brick_and_split(cuda, monkeypatch, border):
 
 def _every_tile_plan(monkeypatch, run, want, extent, c, h, w):
     """The view-tile backward at every channel slice and number of ranges:
-    within 1e-4 of the plain backward, every visible pair taken once."""
+    bitwise equal to the plain backward, every visible pair taken once."""
     visible = None
     for cs in bp.tile_channel_choices(c, h, w):
         for ranges in range(1, bp.MAX_CLUSTER + 1):
@@ -346,7 +345,7 @@ def _every_tile_plan(monkeypatch, run, want, extent, c, h, w):
             stats = torch.zeros(3, dtype=torch.int64, device="cuda")
             got = run(stats=stats)
             torch.cuda.synchronize()
-            _close(got.reshape(want.shape), want)
+            _equal(got.reshape(want.shape), want)
             assert stats[1:].sum() == 0 and stats[0] > 0, (plan, stats)
             visible = visible or int(stats[0])
             assert int(stats[0]) == visible, (plan, stats)
@@ -368,7 +367,7 @@ def test_backward_kernel_close_camera_takes_both_paths(cuda, monkeypatch):
     in_box, direct, empty = stats.tolist()
     assert in_box > 0 and direct > 0
     assert in_box + direct + empty == plan.grid * 4
-    _close(got.reshape(want.shape), want)
+    _equal(got.reshape(want.shape), want)
 
 
 @pytest.mark.parametrize("dim,c,h,w,depth", [
@@ -409,14 +408,15 @@ def test_tile_backward_writes_every_entry(cuda):
         got = run()
         torch.cuda.synchronize()
         assert torch.isfinite(got).all()
-        _close(got.reshape(want.shape), want)
+        _equal(got.reshape(want.shape), want)
 
 
 @pytest.mark.parametrize("name", ["occ_init_variance", "stage0_window",
                                   "stage1_window", "stage2_window"])
 def test_backward_kernel_path_shapes(cuda, name):
     """The four call shapes of a full-width fragment
-    (tools/bench_back_project.py): kernel vs plain backward."""
+    (tools/bench_back_project.py): kernel vs plain backward, bit for
+    bit."""
     from eprecon_tpu_torch.data.synthetic import make_fragment
     from eprecon_tpu_torch.tools import bench_back_project as bench
 
@@ -428,7 +428,7 @@ def test_backward_kernel_path_shapes(cuda, name):
     got = case.backward(stats=stats)
     want = case.backward_plain()
     torch.cuda.synchronize()
-    _close(got.reshape(want.shape), want)
+    _equal(got.reshape(want.shape), want)
     plan = bp.plan_backward(case.extent, case.c, case.h, case.w, 9, case.mode)
     if isinstance(plan, bp.TilePlan):  # stage 0: every visible pair once
         assert stats.tolist() == [case.visible, 0, 0]
@@ -436,6 +436,46 @@ def test_backward_kernel_path_shapes(cuda, name):
         assert int(stats.sum()) == 0
     else:
         assert stats[0] > 0
+
+
+@pytest.mark.parametrize("name", ["occ_init_variance", "stage0_window",
+                                  "stage1_window", "stage2_window"])
+def test_backward_kernel_repeats_bit_for_bit(cuda, name):
+    """Repeats of the backward on the same inputs at the four call shapes
+    give the same bits: the atomics' order changes from call to call, the
+    integer sums do not."""
+    from eprecon_tpu_torch.data.synthetic import make_fragment
+    from eprecon_tpu_torch.tools import bench_back_project as bench
+
+    frag = make_fragment(seed=0)
+    (case,) = [cs for cs in bench.cases(frag["proj_matrices"],
+                                        frag["vol_origin_partial"])
+               if cs.name == name]
+    first = case.backward()
+    for _ in range(4):
+        again = case.backward()
+        torch.cuda.synchronize()
+        assert torch.equal(again, first)
+    assert first.abs().max() > 0
+
+
+@pytest.mark.parametrize("name", ["occ_init_variance", "stage0_window",
+                                  "stage2_window"])
+def test_backward_kernel_non_finite_cotangent_is_nan(cuda, name):
+    """A non-finite cotangent entry makes the whole gradient NaN, in the
+    kernels (every design) as in the plain version."""
+    from eprecon_tpu_torch.data.synthetic import make_fragment
+    from eprecon_tpu_torch.tools import bench_back_project as bench
+
+    frag = make_fragment(seed=0)
+    (case,) = [cs for cs in bench.cases(frag["proj_matrices"],
+                                        frag["vol_origin_partial"])
+               if cs.name == name]
+    ct = case.backward.args[6]  # the bf16 cotangent, shared with the plain
+    ct[5, 3] = float("inf")
+    got, want = case.backward(), case.backward_plain()
+    torch.cuda.synchronize()
+    assert torch.isnan(got).all() and torch.isnan(want).all()
 
 
 def test_train_epochs_launches_both_kernels_each_step(cuda, tmp_path):
