@@ -17,7 +17,9 @@ Phases (any failure exits non-zero before the result line):
      that the card holds as many CTAs per SM as the launch plan assumes
      (CUDA occupancy calculator; the plan models each kernel instance's
      registers), and time it
-     (eprecon_tpu_torch/tools/bench_back_project.py):
+     (eprecon_tpu_torch/tools/bench_back_project.py); the occupancy
+     init's grid is also passed as the JAX signature's coordinate list
+     (the forward's runs of rows), checked the same way, untimed:
      ms is the kernel's device time under torch.profiler with the L2
      flushed, call_ms the wrapper's time per call, beside the plain
      version, an F.grid_sample yardstick (library_ms) and the least time
@@ -34,7 +36,8 @@ Phases (any failure exits non-zero before the result line):
      gradient / empty: the box path must run); where the window mean's
      plan takes view tiles (stage 0, whose bricks cannot fill the card) the
      visible (voxel, view) pairs the tiles took must equal the forward's
-     view counts' sum; the variance's per-voxel kernel tallies nothing;
+     view counts' sum; the occupancy init's variance takes bricks too
+     (over its grid as a window), tallied the same way;
      check that the card holds as many CTAs per SM as the plan assumes (a
      brick plan cuts shared memory for them; a tile plan's clusters must
      fit the card at once, and its visible-records pass is checked too),
@@ -220,16 +223,15 @@ def ptxas_lines(so: Path):
         m = re.search(r"entry function '(\S+)'", line)
         if m:
             f = re.search(r"project_kernelILi(\d+)ELb([01])E", m.group(1))
-            k = re.search(r"backward_kernelILi(\d+)E", m.group(1))
+            k = re.search(r"backward_kernelILb([01])E", m.group(1))
             t = re.search(r"backward_tileILi(\d+)E", m.group(1))
-            b = re.search(r"back_project_(backward_by_voxel|backward_visible|"
-                          r"backward_scale|backward_convert)", m.group(1))
+            b = re.search(r"back_project_(backward_visible|backward_scale|"
+                          r"backward_convert)", m.group(1))
             mode = lambda x: "variance" if x == "1" else "mean"
             name = (f"items={f.group(1)} {mode(f.group(2))}" if f
-                    else f"backward items={k.group(1)} mean" if k
+                    else f"backward bricks {mode(k.group(1))}" if k
                     else f"backward view tile cs={t.group(1)} mean" if t
-                    else {"backward_by_voxel": "backward per voxel variance",
-                          "backward_visible": "backward visible records mean",
+                    else {"backward_visible": "backward visible records mean",
                           "backward_scale": "backward fixed-point scale",
                           "backward_convert": "backward fixed-point conversion"
                           }[b.group(1)] if b
@@ -248,11 +250,11 @@ def kernel_phase(case_list, v, card):
     from eprecon_tpu_torch.ops import back_project as bp
     from eprecon_tpu_torch.tools import bench_back_project as bench
 
-    results = []
-    for case in case_list:
-        name, n, c = case.name, case.n, case.c
+    def check(name, run, plain, extent, n, c, mode):
+        """Kernel vs plain, brick-view tallies and CTAs per SM of one
+        launch: (max abs err, (seen, empty), plan, CTAs per SM)."""
         stats = torch.zeros(2, dtype=torch.int64, device="cuda")
-        (k_out, k_cnt), (p_out, p_cnt) = case.run(stats=stats), case.plain()
+        (k_out, k_cnt), (p_out, p_cnt) = run(stats=stats), plain()
         torch.cuda.synchronize()
         k_out, p_out = k_out.float().reshape(n, c), p_out.float().reshape(n, c)
         err = (k_out - p_out).abs().max().item()
@@ -264,14 +266,41 @@ def kernel_phase(case_list, v, card):
         if not (0.05 * n < (p_cnt > 0).sum().item()):
             raise AssertionError(f"{name}: degenerate geometry, few visible voxels")
         seen, empty = stats.tolist()
-        plan = bp.plan_launch(case.extent, c, v, 1, case.mode)
+        plan = bp.plan_launch(extent, c, v, 1, mode)
         if seen + empty != plan.grid * v:
             raise AssertionError(f"{name}: brick-view tallies {stats.tolist()} "
                                  f"!= {plan.grid} CTAs x {v} views")
-        ctas_per_sm = bp.occupancy(plan, case.mode)
+        ctas_per_sm = bp.occupancy(plan, mode)
         if ctas_per_sm != plan.ctas_per_sm:
             raise AssertionError(f"{name}: the card holds {ctas_per_sm} CTAs per "
                                  f"SM, the plan assumes {plan.ctas_per_sm}")
+        return err, (seen, empty), plan, ctas_per_sm
+
+    results = []
+    for case in case_list:
+        name, n, c = case.name, case.n, case.c
+        err, (seen, empty), plan, ctas_per_sm = check(
+            name, case.run, case.plain, case.extent, n, c, case.mode)
+        listed = {}
+        if case.list_run is not None:
+            # the same rows as the JAX signature's coordinate list: the
+            # forward's runs of rows (its backward has no kernel)
+            l_err, l_tally, l_plan, l_ctas = check(
+                f"{name} as a coordinate list", case.list_run, case.list_plain,
+                (n,), n, c, case.mode)
+            listed = dict(coordinate_list=dict(
+                max_abs_err=l_err, bitwise_equal=l_err == 0.0,
+                brick_views=dict(seen=l_tally[0], empty=l_tally[1]),
+                ctas_per_sm=l_ctas, plan_ctas_per_sm=l_plan.ctas_per_sm,
+                launch_parameters=dict(brick=list(l_plan.brick),
+                                       grid=l_plan.grid, threads=l_plan.threads,
+                                       smem_bytes=l_plan.smem_bytes)))
+            print(f"[kernel] {name} as a coordinate list: N={n} C={c} "
+                  f"err={l_err:.3g} CTAs/SM on the card={l_ctas} (plan "
+                  f"{l_plan.ctas_per_sm}) brick-views seen/empty="
+                  f"{l_tally[0]}/{l_tally[1]} | launched with brick="
+                  f"{l_plan.brick} grid={l_plan.grid} threads={l_plan.threads} "
+                  f"smem={l_plan.smem_bytes} B | {card}", flush=True)
         t = bench.time_case(case, v)
         res = dict(name=f"back_project/{name}", route="cuda",
                    source="eprecon_tpu_torch/csrc/back_project.cu",
@@ -282,7 +311,7 @@ def kernel_phase(case_list, v, card):
                    brick_views=dict(seen=seen, empty=empty),
                    launch_parameters=dict(brick=list(plan.brick), grid=plan.grid,
                                           threads=plan.threads,
-                                          smem_bytes=plan.smem_bytes))
+                                          smem_bytes=plan.smem_bytes), **listed)
         print(f"[kernel] {name}: N={n} C={c} err={err:.3g} ms={t['ms']:.4f} "
               f"(profiled windows {t['profiler_windows']}) "
               f"call_ms={t['call_ms']:.4f} plain_ms={t['plain_ms']:.4f} "
@@ -332,10 +361,6 @@ def backward_phase(case_list, v, card):
                 raise AssertionError(f"backward {case.name}: the view tiles took "
                                      f"{stats.tolist()} visible pairs, the forward "
                                      f"counted {case.visible}")
-        elif plan.per_voxel:
-            if in_box + direct + empty != 0:
-                raise AssertionError(f"backward {case.name}: the per-voxel "
-                                     f"kernel tallied {stats.tolist()}")
         elif in_box + direct + empty != plan.grid * v or in_box == 0:
             raise AssertionError(f"backward {case.name}: brick-view tallies "
                                  f"{stats.tolist()} for {plan.grid} CTAs x {v} "
@@ -363,7 +388,7 @@ def backward_phase(case_list, v, card):
         launch = (dict(view_tiles=True, cs=plan.cs, ranges=plan.ranges,
                        tiles=plan.tiles, grid=plan.grid, threads=plan.threads,
                        smem_bytes=plan.smem_bytes, **held) if tile else
-                  dict(per_voxel=plan.per_voxel, brick=list(plan.brick),
+                  dict(brick=list(plan.brick),
                        grid=plan.grid, threads=plan.threads, cvec=plan.cvec,
                        box_px=plan.box_px, smem_bytes=plan.smem_bytes))
         results.append(dict(
@@ -386,8 +411,6 @@ def backward_phase(case_list, v, card):
                    f"{in_box}, visible-pass CTAs/SM on the card="
                    f"{held['visible_ctas_per_sm']} (plan "
                    f"{plan.visible_ctas_per_sm})")
-        elif plan.per_voxel:
-            how = f"per-voxel kernel, grid={plan.grid} threads={plan.threads}"
         else:
             how = (f"brick-views in-box/direct/empty={in_box}/{direct}/{empty} | "
                    f"launched with brick={plan.brick} grid={plan.grid} threads="
@@ -675,7 +698,7 @@ def export_phase(card, served):
     cfg, model, frags = served["cfg"], served["model"], served["fragments"]
     m = cfg.model
     want_ops = {"eprecon_tpu_torch.window_mean.default": 3,
-                "eprecon_tpu_torch.variance.default": 1}
+                "eprecon_tpu_torch.variance_window.default": 1}
 
     def inputs(f, dev):
         return (f["imgs"].to(dev),

@@ -20,8 +20,7 @@ from eprecon_tpu_torch.models.dense3d import (MaskedBatchNorm3d,
                                               MaskedLayerNorm3d,
                                               Sparse3dELANDense,
                                               SubMConv3dDense)
-from eprecon_tpu_torch.ops.back_project import back_project_variance
-from eprecon_tpu_torch.ops.grid import dense_coords
+from eprecon_tpu_torch.ops.back_project import back_project_variance_window
 
 
 class InitFeatureFusion(nn.Module):
@@ -87,15 +86,13 @@ class OccupancyInitialization(nn.Module):
         fused = torch.stack([self.InitFeatureFusion_0(
             f_coarse[:, b], f_mid[:, b], f_fine[:, b]) for b in range(bs)], 1)
 
-        dev = fused.device
-        coords3 = dense_coords(grid_shape, dev).reshape(-1, 3) * interval
-        n = coords3.shape[0]
-        coords = torch.cat([
-            torch.arange(bs, dtype=torch.int32, device=dev).repeat_interleave(n)[:, None],
-            coords3.repeat(bs, 1)], dim=1)
-        valid = torch.ones(bs * n, dtype=torch.bool, device=dev)
-        var, count = back_project_variance(coords, valid, origin, voxel_size,
-                                           fused, proj)
+        # the dense grid as a window per batch element: the rows of the
+        # reference's coordinate list (b, x, y, z) * interval, in its order
+        per_batch = [back_project_variance_window(
+            grid_shape, interval, origin[b:b + 1], voxel_size, fused[:, b:b + 1],
+            proj[:, b:b + 1]) for b in range(bs)]
+        var, count = (per_batch[0] if bs == 1 else
+                      [torch.cat(x) for x in zip(*per_batch)])
         count_vol = count.reshape(bs, *grid_shape)
         mask = count_vol >= min_view_number
         h = var.reshape(bs, *grid_shape, self.ch_down)

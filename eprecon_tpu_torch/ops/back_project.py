@@ -5,20 +5,27 @@ occupancy_initialization.py:61-261): project every voxel into every view,
 sample the view's features bilinearly (grid_sample align_corners=True,
 zero padding), drop out-of-frustum views, reduce across views.
 
-Two public functions, each with a plain PyTorch version and a CUDA kernel
-(csrc/back_project.cu), forward and backward:
+Three public functions, each with a plain PyTorch version and a CUDA
+kernel (csrc/back_project.cu), forward and backward:
   * back_project_window   — mean over visible views on a dense window
-  * back_project_variance — cross-view variance on a coordinate list
+  * back_project_variance — cross-view variance on a coordinate list (the
+    JAX package's signature)
+  * back_project_variance_window — the same variance over a dense window,
+    which the occupancy init's grid is: both directions then take 3-D
+    bricks
 and two plain helpers on a coordinate list, off the model's path (the
 JAX package computes them with XLA): `project_to_views` and
 `back_project_mean`.
 
-Both are torch custom ops (`eprecon_tpu_torch::window_mean`, `::variance`,
-registered when this module is imported) whose backward ops give the
+All three are torch custom ops (`eprecon_tpu_torch::window_mean`,
+`::variance`, `::variance_window`, registered when this module is
+imported) whose backward ops give the
 features' gradient (the counterpart of the JAX package's gather
 adjoints), so a tracer records them and an exported program runs them. A
 tensor on the CPU takes the plain versions; a CUDA tensor launches the
-kernels or raises. The plain forward does the kernel's arithmetic in the
+kernels or raises: `::variance`'s backward has no kernel (a coordinate
+list's rows need not form bricks) and raises on the card, where the
+model calls `::variance_window`. The plain forward does the kernel's arithmetic in the
 kernel's order (f32 sums over bf16 tables, f32 projection without fused
 multiply-adds), so on the card the two agree bit for bit. The backwards
 sum in 64-bit fixed point (`fixed_point_exponent`): each term w_q * d is
@@ -310,6 +317,31 @@ def back_project_variance_plain(coords, valid, origin, voxel_size, feats, proj):
     return var.to(feats.dtype), count
 
 
+def _window_rows(dim, interval, device):
+    """The coordinate list (b, x, y, z) of a dense window of one batch
+    element, in the window's row order, and its valid mask."""
+    xyz = dense_coords(dim, device).reshape(-1, 3).to(torch.int32) * interval
+    coords = torch.cat([torch.zeros_like(xyz[:, :1]), xyz], 1)
+    return coords, torch.ones(coords.shape[0], dtype=torch.bool, device=device)
+
+
+def back_project_variance_window_plain(dim, interval, origin, voxel_size,
+                                       feats, proj):
+    """The plain variance over a dense window: `back_project_variance_plain`
+    over the window's rows, so the two agree bit for bit."""
+    coords, valid = _window_rows(dim, interval, feats.device)
+    return back_project_variance_plain(coords, valid, origin, voxel_size,
+                                       feats, proj)
+
+
+def variance_window_backward_plain(dim, interval, origin, voxel_size, feats,
+                                   proj, count, ct) -> torch.Tensor:
+    """`variance_backward_plain` over a dense window's rows."""
+    coords, valid = _window_rows(dim, interval, feats.device)
+    return variance_backward_plain(coords, valid, origin, voxel_size, feats,
+                                   proj, count, ct)
+
+
 def variance_backward_plain(coords, valid, origin, voxel_size, feats, proj,
                             count, ct) -> torch.Tensor:
     """Gradient of the variance for its [V, B*H*W, C] table, f32, given
@@ -349,25 +381,23 @@ REGS_PER_SM = 65536               # in 4 sub-partitions, each holding whole warp
 # sm_90a (chip_smoke.py prints the report and fails where the card then
 # holds another number of CTAs than a plan assumes); multiples of 8, the
 # allocation unit. The forward by (mode, items): its launch bounds (256
-# threads x 3 CTAs) cap them at 80. The brick backward: 256 x 4 caps it at
-# 64. The window mean's view-tile backward by channels per tile: 1024 x 1
-# caps it at 64; its visible-records pass. The variance's per-voxel
-# backward.
+# threads x 3 CTAs) cap them at 80. The brick backward by mode, one item
+# per thread: 256 x 4 caps the window mean's at 64, 256 x 3 the
+# variance's at 80. The window mean's view-tile backward by channels per
+# tile: 1024 x 1 caps it at 64; its visible-records pass.
 REGS_PER_THREAD = {(WINDOW_MEAN, 1): 64, (WINDOW_MEAN, 2): 72,
                    (WINDOW_MEAN, 3): 80, (VARIANCE, 1): 64, (VARIANCE, 2): 80}
-BWD_REGS_PER_THREAD = 64
+BWD_REGS_PER_THREAD = {WINDOW_MEAN: 64, VARIANCE: 80}
 TILE_REGS_PER_THREAD = {2: 64, 4: 64, 8: 64, 16: 64}
 VISIBLE_REGS_PER_THREAD = 32
-PER_VOXEL_REGS_PER_THREAD = 80
 SMEM_MAX = 232448                 # the most one CTA can opt in to (227 KB)
 MIN_BRICK = 16                    # voxels; smaller only when channels force it
 BRICKS = ((8, 8, 8), (4, 8, 8), (4, 4, 8), (4, 4, 4), (2, 4, 4), (2, 2, 4),
           (2, 2, 2), (1, 2, 2), (1, 1, 2), (1, 1, 1))
 RUNS = (256, 128, 64, 32, 16, 8, 4, 2, 1)
 MAX_ITEMS = {WINDOW_MEAN: 3, VARIANCE: 2}  # forward: f32 sums kept in registers
-BWD_MAX_ITEMS = 2                 # brick backward: the window mean's d per item
-BOX_MIN_PX = 1024                 # pixels of the largest box the backward should sum
-BOX_MAX_PX = 65535                # the kernel packs a box pixel into 16 bits
+BOX_MIN_PX = 96                   # brick backward: pixels of its smallest box,
+BOX_MAX_PX = {WINDOW_MEAN: 256, VARIANCE: 96}  # and of its largest, by mode
 TILE_MAX_THREADS = 1024           # view-tile backward: threads per CTA
 MAX_CLUSTER = 8                   # CTAs per view tile (a portable cluster)
 
@@ -394,12 +424,10 @@ class LaunchPlan:
 
 @dataclasses.dataclass(frozen=True)
 class BackwardPlan(LaunchPlan):
-    """A backward launch: the window mean's bricks, one CTA per (brick,
-    channel split), or the variance's one thread per (voxel, vector),
-    MAX_THREADS per CTA."""
+    """A brick backward launch over a dense window: one CTA per (brick,
+    channel split), one (voxel, vector) item per thread (`items` is 1)."""
     cvec: int = 1                # 8-channel vectors per CTA (a divisor of C/8)
     box_px: int = 0              # pixels of the largest box summed in shared memory
-    per_voxel: bool = False      # one thread per (voxel, vector), no bricks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -442,13 +470,15 @@ def smem_regions(v: int, b: int, bvox: int):
 
 def backward_regions(v: int, bvox: int, cvec: int, box_px: int):
     """Bytes of each shared-memory region of one brick backward CTA (one
-    batch element, a record slot per view), in the order of `BwdLayout` in
-    csrc/back_project.cu."""
+    batch element, a record slot per view: corner pixel and the fractions
+    (du, dv)), in the order of `BwdLayout` in csrc/back_project.cu: the
+    last is the box, box_px pixels x 8 * cvec channels of int64 as two
+    planes of 32-bit words, each pixel padded by a word (an odd stride
+    spreads a warp's pixels over the banks)."""
     return dict(proj=v * 16 * 4, world=bvox * 16, row=bvox * 4,
-                w=v * bvox * 16, uv=v * bvox * 4,
+                w=v * bvox * 8, uv=v * bvox * 4,
                 part=(MAX_THREADS // 32) * 8 * 4, box=v * 4 * 4,
-                views=(v + 1) * 4, d=bvox * cvec * 8 * 4, list=4 * bvox * 4,
-                cnt=(box_px + 1) * 4)
+                views=(v + 1) * 4, acc=box_px * (cvec * 8 + 1) * 8)
 
 
 def _layout(regions) -> Tuple[int, ...]:
@@ -545,49 +575,66 @@ def plan_launch(extent: Tuple[int, ...], c: int, v: int, b: int = 1,
     return plan_brick(extent, c, v, b, brick, mode)
 
 
-def backward_brick_choices(extent: Tuple[int, int, int], cvec: int, v: int
+def _backward_regs(mode: int) -> Callable[[int], int]:
+    return lambda items: BWD_REGS_PER_THREAD[mode]
+
+
+def backward_brick_choices(extent: Tuple[int, int, int], cvec: int, v: int,
+                           mode: int = WINDOW_MEAN
                            ) -> List[Tuple[int, int, int]]:
-    """The bricks a window mean's backward whose CTAs own `cvec` vectors
-    may take, largest first: as `brick_choices`, but only those whose
-    records for every one of `v` views fit one CTA's shared memory, and of
-    those only the ones that fill a CTA of MAX_THREADS threads where any
-    does, so that few CTAs share an SM and each keeps a large share of its
-    shared memory for the box."""
-    fitting = [br for br in _choices(extent, cvec, BWD_MAX_ITEMS)
-               if _layout(backward_regions(v, math.prod(br), cvec, 0))[-1] <= SMEM_MAX]
-    full = [br for br in fitting if math.prod(br) * cvec >= MAX_THREADS]
-    return full or fitting
+    """The bricks a brick backward whose CTAs own `cvec` vectors may take,
+    largest first: as `brick_choices`, at one item per thread, but only
+    those whose records for every one of `v` views and a box of BOX_MIN_PX
+    pixels fit one CTA's shared memory."""
+    return [br for br in _choices(extent, cvec, 1)
+            if _layout(backward_regions(v, math.prod(br), cvec,
+                                        BOX_MIN_PX))[-1] <= SMEM_MAX]
 
 
 def plan_backward_brick(extent: Tuple[int, int, int], c: int, h: int, w: int,
                         v: int, brick: Tuple[int, int, int], cvec: int,
-                        box_px: Optional[int] = None) -> BackwardPlan:
-    """The window mean's brick backward over `extent` with one CTA per
-    `brick` and `cvec` of the c/8 vectors. Every view gets a record slot;
-    as many CTAs share an SM as the registers allow (or the grid needs) and
-    the records leave room for; the per-pixel counts of the box take the
-    shared memory those CTAs leave (whole 128-byte granules), capped at a
-    whole image (h * w pixels) and BOX_MAX_PX; that cut also makes shared
-    memory hold exactly that many CTAs. `box_px` overrides the box (0:
-    every brick-view scatters straight into the gradient). Refuses a brick
-    whose records for every view do not fit one CTA."""
+                        box_px: Optional[int] = None,
+                        mode: int = WINDOW_MEAN) -> BackwardPlan:
+    """The brick backward of `mode` over `extent` with one CTA per `brick`
+    and `cvec` of the c/8 vectors. Every view gets a record slot. The box
+    takes the shared memory that the CTAs the registers allow (or the grid
+    needs) leave (whole 128-byte granules), with fewer CTAs where that is
+    under BOX_MIN_PX pixels, and holds at most the mode's BOX_MAX_PX or
+    h * w pixels: a box is read whole when it is flushed, between two
+    barriers, so a larger one costs more than the brick-views it keeps off
+    the direct path, which waits at none; the variance's barriers also
+    wait for each view's samples (PERF.md). The plan assumes the CTAs per
+    SM that registers and the final shared memory allow. `box_px`
+    overrides the box (0: every brick-view scatters straight into the
+    gradient). Refuses a brick whose records for every view do not fit one
+    CTA."""
     nvec = c // 8
     if cvec < 1 or nvec % cvec:
         raise ValueError(f"{cvec} vectors per CTA do not divide {nvec}")
     bvox, grid = math.prod(brick), _grid(extent, brick) * (nvec // cvec)
-    items, threads, ctas = _brick_shape(bvox, cvec, grid,
-                                        lambda _: BWD_REGS_PER_THREAD)
-    if items > BWD_MAX_ITEMS:
-        raise ValueError(f"brick {brick} x {cvec} vectors: {items} items per thread")
+    if bvox * cvec > MAX_THREADS:
+        raise ValueError(f"brick {brick} x {cvec} vectors: more items than "
+                         f"{MAX_THREADS} threads")
+    items, threads, by_regs = _brick_shape(bvox, cvec, grid, _backward_regs(mode))
     fixed = _layout(backward_regions(v, bvox, cvec, 0))[-1]
     if fixed > SMEM_MAX:
         raise ValueError(f"{v} views exceed shared memory")
-    ctas = min(ctas, SMEM_PER_SM // (-(-fixed // SMEM_GRANULE) * SMEM_GRANULE + 1024))
-    budget = min(SMEM_PER_SM // ctas - 1024, SMEM_MAX) // SMEM_GRANULE * SMEM_GRANULE
     if box_px is None:
-        box_px = max(0, min((budget - fixed) // 16 * 4, h * w, BOX_MAX_PX))
-    return BackwardPlan(brick, grid, threads, items, ctas,
-                        _layout(backward_regions(v, bvox, cvec, box_px)),
+        def room(n):  # box pixels that n CTAs per SM leave
+            budget = min(SMEM_PER_SM // n - 1024, SMEM_MAX) // SMEM_GRANULE * SMEM_GRANULE
+            return max(0, (budget - fixed) // ((cvec * 8 + 1) * 8))
+
+        ctas = by_regs
+        while ctas > 1 and room(ctas) < min(BOX_MIN_PX, h * w):
+            ctas -= 1
+        box_px = min(room(ctas), BOX_MAX_PX[mode], h * w)
+    layout = _layout(backward_regions(v, bvox, cvec, box_px))
+    if layout[-1] > SMEM_MAX:
+        raise ValueError(f"a box of {box_px} pixels x {8 * cvec} channels "
+                         "exceeds shared memory")
+    # the CTAs the registers (or the grid) and the final shared memory allow
+    return BackwardPlan(brick, grid, threads, items,
+                        max(1, min(by_regs, _smem_ctas(layout[-1]))), layout,
                         cvec=cvec, box_px=box_px)
 
 
@@ -651,49 +698,35 @@ def view_tile_plan(c: int, h: int, w: int, v: int) -> TilePlan:
     return min(plans, key=lambda p: (p.grid, -p.cs))
 
 
-def per_voxel_plan(n: int, c: int) -> BackwardPlan:
-    """The variance's backward as one thread per (voxel, vector) over n
-    rows: no bricks, no shared memory; as many CTAs share an SM as the
-    instance's registers allow."""
-    return BackwardPlan((1, 1, 1), math.ceil(n * (c // 8) / MAX_THREADS),
-                        MAX_THREADS, 1,
-                        _resident(MAX_THREADS, PER_VOXEL_REGS_PER_THREAD),
-                        (), per_voxel=True)
-
-
 @functools.lru_cache(maxsize=None)
 def plan_backward(extent: Tuple[int, ...], c: int, h: int, w: int, v: int,
                   mode: int = WINDOW_MEAN):
-    """The backward launch. The variance over its coordinate list takes
-    `per_voxel_plan`: the view-tile design measured slower there (PERF.md:
-    its per-row terms over every view cost as much as the whole per-voxel
-    kernel). The window mean takes bricks: the widest channel split (most
-    vectors per CTA) whose box holds BOX_MIN_PX pixels (or a whole image);
-    for it, the largest of the `backward_brick_choices` that fills the
-    card. (Fewer splits repeat the setup, cull and projection fewer times;
-    a larger box keeps more brick-views off the direct path.) A window
-    whose bricks cannot fill MIN_WAVES waves of the card, or where no split
-    leaves such a box, takes view tiles (`view_tile_plan`) where one fits:
-    a grid of bricks under two waves is bound by one CTA's chain of phases
-    (PERF.md)."""
-    n = math.prod(extent)
-    if mode == VARIANCE:
-        return per_voxel_plan(n, c)
-    nvec, plan, boxed = c // 8, None, False
-    for cvec in sorted((d for d in range(1, nvec + 1) if nvec % d == 0),
-                       reverse=True):
-        choices = backward_brick_choices(extent, cvec, v)
-        if not choices:
-            continue
-        brick = _largest_filling(extent, choices, nvec // cvec, cvec,
-                                 lambda _: BWD_REGS_PER_THREAD)
-        plan = plan_backward_brick(extent, c, h, w, v, brick, cvec)
-        boxed = plan.box_px >= min(BOX_MIN_PX, h * w)
-        if boxed:
-            break
-    if tile_channel_choices(c, h, w) and (
-            not boxed or plan.grid < MIN_WAVES * plan.ctas_per_sm * SM_COUNT):
-        return view_tile_plan(c, h, w, v)
+    """The backward launch over a dense window (a coordinate list, whose
+    rows need not form bricks, has none: ValueError). It takes bricks of
+    one (voxel, vector) item per thread: of every
+    channel split and brick (`backward_brick_choices`), the one with the
+    most threads per CTA, the widest split and then the largest brick
+    among equals (more threads share each of a CTA's barriers, and one
+    item leaves the registers for more CTAs; fewer splits repeat the
+    setup, cull and projection fewer times: PERF.md). Where its grid
+    cannot fill MIN_WAVES waves of the card, the window mean takes view
+    tiles (`view_tile_plan`) where one fits (a grid of bricks under two
+    waves is bound by one CTA's chain of phases: PERF.md), and the
+    variance the brick plan that fills the card most."""
+    if len(extent) != 3:
+        raise ValueError("the backward kernels take a dense window, not a "
+                         "coordinate list")
+    nvec = c // 8
+    plans = [plan_backward_brick(extent, c, h, w, v, brick, cvec, mode=mode)
+             for cvec in range(1, nvec + 1) if nvec % cvec == 0
+             for brick in backward_brick_choices(extent, cvec, v, mode)]
+    waves = lambda p: p.grid / (p.ctas_per_sm * SM_COUNT)
+    plan = max(plans, key=lambda p: (p.threads, p.cvec, math.prod(p.brick)),
+               default=None)
+    if plan is None or waves(plan) < MIN_WAVES:
+        if mode == WINDOW_MEAN and tile_channel_choices(c, h, w):
+            return view_tile_plan(c, h, w, v)
+        plan = max(plans, key=waves, default=None)
     if plan is None:
         raise ValueError(f"{v} views, {h}x{w} pixels x {c} channels: neither "
                          "bricks nor a view tile fit shared memory")
@@ -716,7 +749,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.bp_forward.restype = ctypes.c_int
         lib.bp_occupancy.argtypes = [i, i, i, i, i, ctypes.POINTER(i)]
         lib.bp_occupancy.restype = ctypes.c_int
-        lib.bp_backward.argtypes = [p, p, p, p, i, i, i, i,
+        lib.bp_backward.argtypes = [p, p, p, p, p, i, i, i, i,
                                     ctypes.c_longlong, i, i, i, i,
                                     ctypes.c_float, i, i, i, i, i, i,
                                     ctypes.POINTER(ctypes.c_longlong),
@@ -730,10 +763,6 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.bp_tile_occupancy.argtypes = [i, i, i, i, i, ctypes.POINTER(i),
                                           ctypes.POINTER(i)]
         lib.bp_tile_occupancy.restype = ctypes.c_int
-        lib.bp_backward_by_voxel.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
-                                             i, ctypes.c_longlong,
-                                             ctypes.c_float, p, p, p, p]
-        lib.bp_backward_by_voxel.restype = ctypes.c_int
     return lib
 
 
@@ -801,10 +830,8 @@ def _launch(mode: int, table: torch.Tensor, proj: torch.Tensor,
 
 def _launch_backward(mode: int, table: Optional[torch.Tensor],
                      proj: torch.Tensor, origin: torch.Tensor,
-                     coords: Optional[torch.Tensor],
-                     valid: Optional[torch.Tensor], ct: torch.Tensor,
-                     count: torch.Tensor, v: int, h: int, w: int,
-                     dims: Sequence[int] = (0, 0, 0), interval: int = 1,
+                     ct: torch.Tensor, count: torch.Tensor, v: int, h: int,
+                     w: int, dims: Sequence[int], interval: int = 1,
                      voxel_size: float = 1.0,
                      stats: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The backward kernels: the table gradient [V, B*H*W, C] f32 given the
@@ -813,12 +840,12 @@ def _launch_backward(mode: int, table: Optional[torch.Tensor],
     the variance, into a scratch it zeroes; a design that adds in device
     memory adds into an int64 scratch and converts it last). table: the
     bf16 [V, B*H*W, C] features (variance only; the mean does not read
-    them); proj, origin, coords, valid as for `_launch`; stats: None, or
-    int64 [3] that the window mean's kernel adds its tallies to: a brick
-    plan its brick-views (summed per pixel in shared memory, scattered
-    straight into the gradient, no voxel visible), a view-tile plan the
-    visible (voxel, view) pairs it took, in [0]; the variance's kernel
-    adds none."""
+    them); proj, origin as for `_launch`, over a dense window `dims` *
+    `interval` of one batch element (B = 1); stats: None, or int64 [3]
+    that the kernel adds its tallies to: a brick plan its brick-views
+    (summed per pixel in shared memory, scattered straight into the
+    gradient, no voxel visible), a view-tile plan the visible (voxel,
+    view) pairs it took, in [0]."""
     dev = ct.device
     if dev.type != "cuda":
         raise ValueError(f"back-projection kernel needs CUDA tensors, got {dev}")
@@ -832,12 +859,12 @@ def _launch_backward(mode: int, table: Optional[torch.Tensor],
     _check("origin", origin, torch.float32, (bb, 3), dev)
     if mode == VARIANCE:
         _check("table", table, torch.bfloat16, (v, bb * h * w, c), dev)
-        _check("coords", coords, torch.int32, (n, 4), dev)
-        _check("valid", valid, torch.uint8, (n,), dev)
+    if bb != 1 or math.prod(dims) != n:
+        raise ValueError(f"a dense window {tuple(dims)} of one batch element "
+                         f"has {math.prod(dims)} rows, got {n} and {bb} batches")
     if stats is not None:
         _check("stats", stats, torch.int64, (3,), dev)
-    plan = plan_backward((n,) if mode == VARIANCE else tuple(dims), c, h, w,
-                         v, mode)
+    plan = plan_backward(tuple(dims), c, h, w, v, mode)
     lib = _library()
     ptr = lambda t: None if t is None else t.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -856,19 +883,12 @@ def _launch_backward(mode: int, table: Optional[torch.Tensor],
             (ctypes.c_longlong * len(plan.layout))(*plan.layout),
             maxima.data_ptr(), nrec.data_ptr(), rec_ru.data_ptr(),
             rec_w.data_ptr(), grad.data_ptr(), ptr(stats), stream)
-    elif plan.per_voxel:
-        acc = torch.empty(grad.shape, dtype=torch.int64, device=dev)
-        rc = lib.bp_backward_by_voxel(
-            table.data_ptr(), proj.data_ptr(), origin.data_ptr(),
-            coords.data_ptr(), valid.data_ptr(), ct.data_ptr(),
-            count.data_ptr(), v, bb, h, w, c, n, float(voxel_size),
-            maxima.data_ptr(), acc.data_ptr(), grad.data_ptr(), stream)
     else:
         acc = torch.empty(grad.shape, dtype=torch.int64, device=dev)
         rc = lib.bp_backward(
-            proj.data_ptr(), origin.data_ptr(), ct.data_ptr(), count.data_ptr(),
-            v, h, w, c, n, *dims, interval, float(voxel_size), *plan.brick,
-            plan.cvec, plan.threads, plan.items,
+            proj.data_ptr(), origin.data_ptr(), ptr(table), ct.data_ptr(),
+            count.data_ptr(), v, h, w, c, n, *dims, interval,
+            float(voxel_size), mode, *plan.brick, plan.cvec, plan.threads,
             (ctypes.c_longlong * len(plan.layout))(*plan.layout),
             maxima.data_ptr(), acc.data_ptr(), grad.data_ptr(), ptr(stats),
             stream)
@@ -904,15 +924,14 @@ def occupancy(plan, mode: int) -> int:
     takes the shared memory they leave)."""
     if isinstance(plan, TilePlan):
         return tile_occupancy(plan)[0]
-    kernel = (0 if not isinstance(plan, BackwardPlan)
-              else 2 if plan.per_voxel else 1)
+    kernel = 1 if isinstance(plan, BackwardPlan) else 0
     return _occupancy(kernel, mode, plan.items, plan.threads, plan.smem_bytes)
 
 
 def visible_occupancy(plan: TilePlan) -> int:
     """CTAs of the view-tile backward's visible-records pass that one SM
     holds; the plan assumes `plan.visible_ctas_per_sm`."""
-    return _occupancy(3, WINDOW_MEAN, 1, MAX_THREADS, 0)
+    return _occupancy(2, WINDOW_MEAN, 1, MAX_THREADS, 0)
 
 
 def tile_occupancy(plan: TilePlan) -> Tuple[int, int]:
@@ -962,13 +981,39 @@ def back_project_window(dim: Tuple[int, int, int], interval: int,
         feats, origin, proj, list(dim), interval, float(voxel_size))
 
 
+def back_project_variance_window(dim: Tuple[int, int, int], interval: int,
+                                 origin: torch.Tensor, voxel_size: float,
+                                 feats: torch.Tensor, proj: torch.Tensor,
+                                 stats: Optional[torch.Tensor] = None):
+    """Cross-view feature variance over visible views for every voxel of a
+    dense window of one batch element, with the gradient for `feats`
+    (`eprecon_tpu_torch::variance_window`): `back_project_variance` over
+    the window's rows (x, y, z) * interval, bit for bit, with 3-D bricks
+    in both directions on the card.
+
+    dim: (X, Y, Z); interval: window stride in fine voxels; origin [1, 3];
+    feats [V, 1, H, W, C] bf16 on the card; proj [V, 1, 4, 4]; stats: as
+    for `back_project_window`.
+    Returns (variance [X*Y*Z, C] in feats' dtype, count [X*Y*Z] f32).
+    """
+    _route(feats, stats)
+    if stats is not None:
+        return _variance_window_cuda(feats, origin, proj, list(dim), interval,
+                                     voxel_size, stats)
+    return torch.ops.eprecon_tpu_torch.variance_window(
+        feats, origin, proj, list(dim), interval, float(voxel_size))
+
+
 def back_project_variance(coords: torch.Tensor, valid: torch.Tensor,
                           origin: torch.Tensor, voxel_size: float,
                           feats: torch.Tensor, proj: torch.Tensor,
                           stats: Optional[torch.Tensor] = None):
     """Cross-view feature variance over visible views per voxel, the
     occupancy-init matching cost (port of back_project.py:215-249), with
-    the gradient for `feats` (`eprecon_tpu_torch::variance`).
+    the gradient for `feats` (`eprecon_tpu_torch::variance`) on the CPU:
+    on the card the forward runs the kernel over runs of rows and the
+    backward raises (the model's dense grid takes
+    `back_project_variance_window`, whose backward has a kernel).
 
     coords [K, 4] (b, x, y, z) fine units; valid [K] bool; origin [B, 3];
     feats [V, B, H, W, C]; proj [V, B, 4, 4]; stats: as for
@@ -1019,6 +1064,20 @@ def _variance_cuda(feats, coords, valid, origin, proj, voxel_size,
                    voxel_size=voxel_size, stats=stats)
 
 
+def _variance_window_cuda(feats, origin, proj, dim, interval, voxel_size,
+                          stats=None):
+    vv, bb, h, w, c = feats.shape
+    if bb != 1:
+        raise ValueError("back_project_variance_window takes one batch element")
+    if feats.dtype != torch.bfloat16:
+        raise ValueError(f"variance kernel takes bf16 features, got {feats.dtype}")
+    dim = tuple(dim)
+    return _launch(VARIANCE, feats.reshape(vv, h * w, c).contiguous(),
+                   proj.float().reshape(vv, 1, 16).contiguous(),
+                   origin.float().reshape(1, 3).contiguous(), None, None,
+                   math.prod(dim), h, w, dim, interval, voxel_size, stats)
+
+
 @torch.library.custom_op("eprecon_tpu_torch::window_mean", mutates_args=(),
                          device_types="cpu")
 def _window_mean_op(feats: torch.Tensor, origin: torch.Tensor,
@@ -1053,7 +1112,7 @@ def _(ct, origin, proj, count, dim, interval, voxel_size, h, w):
     vv, c = proj.shape[0], ct.shape[-1]
     return _launch_backward(
         WINDOW_MEAN, None, proj.float().reshape(vv, 1, 16).contiguous(),
-        origin.float().reshape(1, 3).contiguous(), None, None,
+        origin.float().reshape(1, 3).contiguous(),
         ct.reshape(-1, c).to(torch.bfloat16).contiguous(), count.reshape(-1),
         vv, h, w, tuple(dim), interval, voxel_size).reshape(vv, h * w, c)
 
@@ -1115,14 +1174,9 @@ def _variance_backward_op(feats: torch.Tensor, coords: torch.Tensor,
 
 @_variance_backward_op.register_kernel("cuda")
 def _(feats, coords, valid, origin, proj, count, ct, voxel_size):
-    vv, bb, h, w, c = feats.shape
-    return _launch_backward(
-        VARIANCE, feats.reshape(vv, bb * h * w, c).contiguous(),
-        proj.float().reshape(vv, bb, 16).contiguous(),
-        origin.float().reshape(bb, 3).contiguous(),
-        coords.to(torch.int32).contiguous(), valid.to(torch.uint8).contiguous(),
-        ct.to(torch.bfloat16).contiguous(), count, vv, h, w,
-        voxel_size=voxel_size)
+    raise RuntimeError("the variance over a coordinate list has no backward "
+                       "kernel on the card (its rows need not form bricks); "
+                       "back_project_variance_window takes a dense grid")
 
 
 @_variance_backward_op.register_fake
@@ -1146,3 +1200,70 @@ def _variance_grad(ctx, ct, _):
 
 
 _variance_op.register_autograd(_variance_grad, setup_context=_variance_setup)
+
+
+@torch.library.custom_op("eprecon_tpu_torch::variance_window",
+                         mutates_args=(), device_types="cpu")
+def _variance_window_op(feats: torch.Tensor, origin: torch.Tensor,
+                        proj: torch.Tensor, dim: List[int], interval: int,
+                        voxel_size: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    return back_project_variance_window_plain(tuple(dim), interval, origin,
+                                              voxel_size, feats, proj)
+
+
+_variance_window_op.register_kernel("cuda")(_variance_window_cuda)
+
+
+@_variance_window_op.register_fake
+def _(feats, origin, proj, dim, interval, voxel_size):
+    n = math.prod(dim)
+    return (feats.new_empty((n, feats.shape[-1])),
+            feats.new_empty((n,), dtype=torch.float32))
+
+
+@torch.library.custom_op("eprecon_tpu_torch::variance_window_backward",
+                         mutates_args=(), device_types="cpu")
+def _variance_window_backward_op(feats: torch.Tensor, origin: torch.Tensor,
+                                 proj: torch.Tensor, count: torch.Tensor,
+                                 ct: torch.Tensor, dim: List[int],
+                                 interval: int, voxel_size: float
+                                 ) -> torch.Tensor:
+    """The window variance's [V, H*W, C] f32 table gradient."""
+    return variance_window_backward_plain(tuple(dim), interval, origin,
+                                          voxel_size, feats, proj, count, ct)
+
+
+@_variance_window_backward_op.register_kernel("cuda")
+def _(feats, origin, proj, count, ct, dim, interval, voxel_size):
+    vv, bb, h, w, c = feats.shape
+    return _launch_backward(
+        VARIANCE, feats.reshape(vv, h * w, c).contiguous(),
+        proj.float().reshape(vv, 1, 16).contiguous(),
+        origin.float().reshape(1, 3).contiguous(),
+        ct.to(torch.bfloat16).contiguous(), count, vv, h, w, tuple(dim),
+        interval, voxel_size)
+
+
+@_variance_window_backward_op.register_fake
+def _(feats, origin, proj, count, ct, dim, interval, voxel_size):
+    vv, bb, h, w, c = feats.shape
+    return feats.new_empty((vv, bb * h * w, c), dtype=torch.float32)
+
+
+def _variance_window_setup(ctx, inputs, output):
+    feats, origin, proj, dim, interval, voxel_size = inputs
+    ctx.mark_non_differentiable(output[1])
+    ctx.save_for_backward(feats, origin, proj, output[1])
+    ctx.args = (dim, interval, voxel_size)
+
+
+def _variance_window_grad(ctx, ct, _):
+    feats, origin, proj, count = ctx.saved_tensors
+    dim, interval, voxel_size = ctx.args
+    grad = torch.ops.eprecon_tpu_torch.variance_window_backward(
+        feats, origin, proj, count, ct, dim, interval, voxel_size)
+    return grad.to(feats.dtype).reshape(feats.shape), None, None, None, None, None
+
+
+_variance_window_op.register_autograd(_variance_window_grad,
+                                      setup_context=_variance_window_setup)

@@ -16,29 +16,41 @@ forward and backward:
                      phases
   no_global_atomics  the backward adds nothing to the gradient in device
                      memory (its sums are still formed): the atomics' cost
-  no_pixel_sums      the backward skips the per-pixel sums of the brick-views
-                     that take the box (and their atomics): a floor for
-                     setup, cull, projection and the cotangents
-  no_tile_atomics    the view-tile backward adds into its shared tile with
-                     plain loads and stores: the cost of its shared atomics
-                     (two 32-bit ones per term)
+  no_box_terms       the brick backward forms and adds no term of the
+                     brick-views that take the box (their flush still runs,
+                     on a zero box): a floor for setup, cull, projection,
+                     the cotangents, the variance's samples and the flush
+  no_shared_atomics  the brick box and the view tiles add their terms with
+                     plain loads and stores: the cost of the shared
+                     atomics (two 32-bit ones per term, add_words)
+  no_conversions     every term is cast to an integer by its bits instead
+                     of the float-to-int64 conversion: the conversions' cost
+  no_first_pass      the variance's brick backward skips its first pass
+                     over the views (the samples for s1, s2): its cost
+  no_box_flush       the brick backward neither reads nor zeroes its box
+                     after a brick-view's adds, nor adds it to the
+                     gradient: the flush's cost
+  no_direct          the brick-views whose box does not fit add nothing
+                     (warp_scatter8 sees no lane): the direct path's cost
   no_tile_records    the view-tile backward takes no record: a floor for its
                      visible-records pass, zero fill and merge
   no_tile_merge      the view-tile backward neither takes records nor merges:
                      a floor for the visible-records pass and the launch
 
-The last six give wrong outputs, which are not checked; every other
+The last ten give wrong outputs, which are not checked; every other
 variant must stay bitwise equal to the plain forward and backward. Then,
 with the kernels as
 committed, it times every brick the forward plan may choose from
 (ops/back_project.py brick_choices) and every backward launch the backward
-plan may choose from: for the variance the per-voxel kernel; for the
-window mean each channel split (vectors per CTA) with each brick it
-allows, the chosen brick plan (or, where the plan takes view tiles, the
-largest one-vector brick) with no box (every brick-view scattered straight
-into the gradient), and the view-tile kernel at every channel slice and
-number of record ranges (ops/back_project.py plan_tile), beside the CTAs
-per SM (and clusters per card) the card holds.
+plan may choose from: each channel split (vectors per CTA) with each brick
+it allows (for the window mean and the variance; every brick whose items
+fit, filling a CTA or not), each with its box and with boxes of BOX_SIZES
+pixels (more or fewer CTAs per SM), the chosen brick plan with no box
+(every brick-view scattered straight into the gradient; where the plan
+takes view tiles, the largest one-vector brick's), and the
+view-tile kernel at every channel slice and number of record ranges
+(ops/back_project.py plan_tile), beside the CTAs per SM (and clusters per
+card) the card holds.
 """
 from __future__ import annotations
 
@@ -61,12 +73,23 @@ VARIANTS = {
                    "      if (0) gather_view<K, kVariance>(view,")],
     "no_global_atomics": [("    if (a >= 0)\n      atomicAdd(",
                            "    if (a >= 0 && q[k] == 0x123456789LL)\n      atomicAdd(")],
-    "no_pixel_sums": [("    for (int t = tid; t <= npx; t += nthr) s_cnt[t] = 0;",
-                       "    if (npx > 0) continue;")],
-    "no_tile_atomics": [("  const unsigned old = atomicAdd(w, lo);\n"
-                         "  const unsigned carry_hi = hi + (old + lo < old ? 1u : 0u);\n"
-                         "  if (carry_hi != 0u) atomicAdd(w + 1, carry_hi);",
-                         "  *p += x;")],
+    "no_box_terms": [("    if (uv >= 0) {\n      const int iu = uv & 0xffff",
+                      "    if (uv >= 0 && kVec < 0) {\n      const int iu = uv & 0xffff")],
+    "no_shared_atomics": [("  const unsigned old = atomicAdd(lo_w, lo);\n"
+                           "  const unsigned carry_hi = hi + (old + lo < old ? 1u : 0u);\n"
+                           "  if (carry_hi != 0u) atomicAdd(hi_w, carry_hi);",
+                           "  const unsigned old = *lo_w;\n  *lo_w = old + lo;\n"
+                           "  *hi_w += hi + (old + lo < old ? 1u : 0u);")],
+    "no_conversions": [("  return __float2ll_rn(term * scale);",
+                        "  return (long long)__float_as_int(term * scale);")],
+    "no_box_flush": [("    for (int t0 = tid - lane; t0 < npx * cvec; t0 += nthr) {",
+                      "    for (int t0 = tid - lane; t0 < 0; t0 += nthr) {")],
+    "no_direct": [("      warp_scatter8(grad, cv * kVec, uv >= 0,",
+                   "      warp_scatter8(grad, cv * kVec, uv >= 0 && kVec < 0,")],
+    "no_first_pass": [("      if (uv < 0) continue;\n      float s[kVec];\n"
+                       "      sample8(view, l, uv,",
+                       "      if (uv < 0 || kVec > 0) continue;\n      float s[kVec];\n"
+                       "      sample8(view, l, uv,")],
     "no_tile_records": [("  for (int q = warp; q < Q; q += nwarps) {",
                          "  for (int q = warp; q < 0; q += nwarps) {")],
     "no_tile_merge": [("  for (int q = warp; q < Q; q += nwarps) {",
@@ -75,23 +98,35 @@ VARIANTS = {
                        "  for (int t0 = px0 * CS + tid; t0 < 0; t0 += kMerge * nthr) {")],
 }
 WRONG_FORWARD = {"no_gather"}
-WRONG_BACKWARD = {"no_gather", "no_global_atomics", "no_pixel_sums",
-                  "no_tile_atomics", "no_tile_records", "no_tile_merge"}
+WRONG_BACKWARD = {"no_gather", "no_global_atomics", "no_box_terms",
+                  "no_shared_atomics", "no_conversions", "no_first_pass",
+                  "no_box_flush", "no_direct",
+                  "no_tile_records", "no_tile_merge"}
+BOX_SIZES = (64, 96, 160, 256)  # box pixels tried beside each plan's own
 
 
-def build_variants(out_dir: Path) -> dict:
-    """Compile every variant in parallel (one nvcc each); name -> .so."""
-    from eprecon_tpu_torch import kernels
-
-    src = (kernels.CSRC / "back_project.cu").read_text()
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
+def variant_sources(src: str) -> dict:
+    """Each variant's source: `src` with its substitutions, every one of
+    which must find its text."""
+    out = {}
     for name, subs in VARIANTS.items():
         text = src
         for old, new in subs:
             if old not in text:
                 raise RuntimeError(f"{name}: {old!r} not found in back_project.cu")
             text = text.replace(old, new)
+        out[name] = text
+    return out
+
+
+def build_variants(out_dir: Path) -> dict:
+    """Compile every variant in parallel (one nvcc each); name -> .so."""
+    from eprecon_tpu_torch import kernels
+
+    sources = variant_sources((kernels.CSRC / "back_project.cu").read_text())
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, text in sources.items():
         cu = out_dir / f"{name}.cu"
         cu.write_text(text)
         so = out_dir / f"{name}.so"
@@ -183,21 +218,29 @@ def main() -> int:
             chosen = plan_backward(case.extent, case.c, case.h, case.w, v, case.mode)
             nvec = case.c // 8
             plans = {}
-            if case.mode == bp.VARIANCE:
-                plans["per voxel"] = bp.per_voxel_plan(case.n, case.c)
-            cvecs = [] if case.mode == bp.VARIANCE else [
-                d for d in range(1, nvec + 1) if nvec % d == 0]
+            cvecs = [d for d in range(1, nvec + 1) if nvec % d == 0]
             for cvec in cvecs:
-                for brick in bp.backward_brick_choices(case.extent, cvec, v):
-                    plans[f"cvec{cvec} {'x'.join(map(str, brick))}"] = (
-                        bp.plan_backward_brick(case.extent, case.c, case.h, case.w,
-                                               v, brick, cvec))
-            if cvecs:
-                best = chosen if isinstance(chosen, bp.BackwardPlan) else plans[
-                    f"cvec1 {'x'.join(map(str, bp.backward_brick_choices(case.extent, 1, v)[0]))}"]
-                plans[f"{'x'.join(map(str, best.brick))} cvec{best.cvec}, direct only"] = (
-                    bp.plan_backward_brick(case.extent, case.c, case.h, case.w, v,
-                                           best.brick, best.cvec, box_px=0))
+                for brick in bp.backward_brick_choices(case.extent, cvec, v,
+                                                       case.mode):
+                    for px in (None, *BOX_SIZES):
+                        try:
+                            plan = bp.plan_backward_brick(
+                                case.extent, case.c, case.h, case.w, v, brick,
+                                cvec, box_px=px, mode=case.mode)
+                        except ValueError:  # items or box exceed a CTA
+                            continue
+                        if plan.threads < 64:  # a warp per CTA: slower at every shape
+                            continue
+                        plans[f"cvec{cvec} {'x'.join(map(str, brick))} box "
+                              f"{plan.box_px} px"] = plan
+            best = chosen if isinstance(chosen, bp.BackwardPlan) else bp.plan_backward_brick(
+                case.extent, case.c, case.h, case.w, v,
+                bp.backward_brick_choices(case.extent, 1, v)[0], 1)
+            plans[f"{'x'.join(map(str, best.brick))} cvec{best.cvec}, direct only"] = (
+                bp.plan_backward_brick(case.extent, case.c, case.h, case.w, v,
+                                       best.brick, best.cvec, box_px=0,
+                                       mode=case.mode))
+            if case.mode == bp.WINDOW_MEAN:
                 for cs in bp.tile_channel_choices(case.c, case.h, case.w):
                     for ranges in range(1, bp.MAX_CLUSTER + 1):
                         plans[f"tiles cs{cs} ranges{ranges}"] = bp.plan_tile(

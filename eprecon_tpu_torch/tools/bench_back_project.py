@@ -10,15 +10,16 @@ events under torch.profiler, summed per call: every backward first
 reduces max |ct| (`back_project_backward_scale`, which also zeroes the
 int64 fixed-point accumulator where the design keeps one), then the
 window mean's view tiles launch a visible-records pass and the tile
-kernel, the bricks and the variance's per-voxel kernel their kernel and
-the conversion pass (`back_project_backward_convert`); `parts` splits it
+kernel, the bricks of either mode their kernel and the conversion pass
+(`back_project_backward_convert`); `parts` splits it
 by kernel), with 128 MB written between calls so the tables come from
 device memory, as they do in a fragment; only a profiled window with a
 record of every launch counts; `call_ms`, the wrapper's time per call
 (CUDA events around a run of Python calls); the plain PyTorch version's
 and an F.grid_sample yardstick's times (the backward's: autograd of the
 yardstick for the same cotangent); and `bound_ms`, the least time the
-card could take.
+card could take (for the variance also `bound_with_list_ms`, were its
+rows read as the JAX signature's coordinate list).
 `--root` names the checkout whose eprecon_tpu_torch is timed (default:
 the one holding this file), so that two versions of the kernel can be
 timed on one card: run this file as a script, once per root. `--shapes`
@@ -46,8 +47,8 @@ KERNEL = "back_project_kernel"
 BACKWARD_KERNEL = "back_project_backward"  # every kernel of the backward
 
 # (name, window dim, interval, proj scale, feature h, w, channels); the
-# first is the occupancy-init variance over a coordinate list, the others
-# the stage windows' means
+# first is the occupancy-init variance over its dense grid (the window form
+# the model calls), the others the stage windows' means
 SHAPES = [("occ_init_variance", (48, 48, 48), 2, 1, 60, 80, 32),
           ("stage0_window", (24, 24, 24), 4, 2, 30, 40, 80),
           ("stage1_window", (48, 48, 48), 2, 1, 60, 80, 40),
@@ -84,10 +85,15 @@ class Case:
     backward_bytes: int = 0
     backward_ops: Tuple[int, int] = (0, 0)  # per visible pair x channel, per voxel x channel
     backward_exponent: Callable = None  # the plain version's fixed-point (e, nan)
+    list_bytes: int = 0  # a coordinate list of the same rows (not read by a window)
+    # the variance's forward over the same rows as the JAX signature's
+    # coordinate list (runs of rows, not bricks): run(**kw), plain()
+    list_run: Callable = None
+    list_plain: Callable = None
 
-    def bound(self, v: int, direction: str = "forward"):
-        """(least ms, what bounds it): bytes over 3.35 TB/s, f32 operations
-        over 67 TFLOP/s, the larger."""
+    def bound(self, v: int, direction: str = "forward", extra_bytes: int = 0):
+        """(least ms, what bounds it): bytes (and `extra_bytes`) over 3.35
+        TB/s, f32 operations over 67 TFLOP/s, the larger."""
         if direction == "forward":
             nbytes, per_vis, per_vox, proj = (self.bytes_, self.ops_per_visible,
                                               self.ops_per_voxel, 1)
@@ -97,7 +103,7 @@ class Case:
                                                 self.projections)
         ops = (proj * self.n * v * 22 + self.visible * self.c * per_vis
                + self.n * self.c * per_vox)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_bytes = (nbytes + extra_bytes) / HBM_BYTES_PER_S * 1e3
         t_ops = ops / F32_OPS_PER_S * 1e3
         return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
@@ -144,41 +150,42 @@ def cases(proj_matrices, vol_origin) -> List[Case]:
         grid = dense_coords(dim, dev).reshape(-1, 3) * interval
         world = grid.float() * 0.04 + origin[0]
         variance = name == "occ_init_variance"
+        args = (dim, interval, origin, 0.04, feats, proj)
         if variance:
-            coords = torch.cat([torch.zeros(n, 1, dtype=torch.int32, device=dev),
-                                grid.to(torch.int32)], 1)
-            valid = torch.ones(n, dtype=torch.bool, device=dev)
-            args = (coords, valid, origin, 0.04, feats, proj)
-            run = lambda args=args, **kw: bp.back_project_variance(*args, **kw)
-            plain = lambda args=args: bp.back_project_variance_plain(*args)
-            mode, extra_in, ops = bp.VARIANCE, n * 16 + n, (11, 4)
+            run = lambda args=args, **kw: bp.back_project_variance_window(*args, **kw)
+            plain = lambda args=args: bp.back_project_variance_window_plain(*args)
+            mode, ops = bp.VARIANCE, (11, 4)
         else:
-            args = (dim, interval, origin, 0.04, feats, proj)
             run = lambda args=args, **kw: bp.back_project_window(*args, **kw)
             plain = lambda args=args: bp.back_project_window_plain(*args)
-            mode, extra_in, ops = bp.WINDOW_MEAN, 0, (9, 1)
+            mode, ops = bp.WINDOW_MEAN, (9, 1)
         count = plain()[1].reshape(-1).contiguous()
         visible = int(count.sum().item())
         feats_f32 = feats[:, 0].permute(0, 3, 1, 2).float().contiguous()
         library = (lambda f=feats_f32, p=proj[:, 0].float(), wo=world, h=h, w=w,
                    var=variance: yardstick(f, p, wo, h, w, var))
-        case = Case(name, mode, (n,) if variance else dim, h, w, n, c, run,
-                    plain, library,
-                    v * h * w * c * 2 + v * 64 + 12 + extra_in + n * c * 2 + n * 4,
-                    visible, *ops, 2 if variance else 1)
+        case = Case(name, mode, dim, h, w, n, c, run, plain, library,
+                    v * h * w * c * 2 + v * 64 + 12 + n * c * 2 + n * 4,
+                    visible, *ops, 2 if variance else 1,
+                    list_bytes=n * 16 + n if variance else 0)
+        if variance:
+            coords = torch.cat([torch.zeros(n, 1, dtype=torch.int32, device=dev),
+                                grid.to(torch.int32)], 1)
+            listed = (coords, torch.ones(n, dtype=torch.bool, device=dev),
+                      origin, 0.04, feats, proj)
+            case.list_run = lambda a=listed, **kw: bp.back_project_variance(*a, **kw)
+            case.list_plain = lambda a=listed: bp.back_project_variance_plain(*a)
         # the cotangent is drawn for every checkout, so that --root A/B runs
         # see the same features
         ct = torch.randn(n, c, device=dev, generator=gen).to(torch.bfloat16)
-        if hasattr(bp, "_launch_backward"):  # a checkout with the backward
-            add_backward(case, feats, proj, origin, count, world, dim, interval,
-                         coords if variance else None,
-                         valid if variance else None, ct)
+        add_backward(case, feats, proj, origin, count, world, dim, interval,
+                     variance, ct)
         out.append(case)
     return out
 
 
 def add_backward(case: Case, feats, proj, origin, count, world, dim, interval,
-                 coords, valid, ct):
+                 variance, ct):
     """The backward kernel, its plain version and the yardstick's autograd
     for the bf16 cotangent ct, and the backward's bytes and operations."""
     import torch
@@ -186,21 +193,20 @@ def add_backward(case: Case, feats, proj, origin, count, world, dim, interval,
 
     v, h, w, n, c = proj.shape[0], case.h, case.w, case.n, case.c
     proj16 = proj.float().reshape(v, 1, 16).contiguous()
-    if coords is not None:
+    if variance:
         case.backward = functools.partial(
             bp._launch_backward, bp.VARIANCE, feats.reshape(v, h * w, c),
-            proj16, origin, coords, valid.to(torch.uint8), ct, count, v, h,
-            w, voxel_size=0.04)
+            proj16, origin, ct, count, v, h, w, dim, interval, 0.04)
         case.backward_plain = functools.partial(
-            bp.variance_backward_plain, coords, valid, origin, 0.04, feats,
-            proj, count, ct)
-        # ct, count, coords + valid, the table
-        nbytes = n * c * 2 + n * 4 + n * 17 + v * h * w * c * 2
+            bp.variance_window_backward_plain, dim, interval, origin, 0.04,
+            feats, proj, count, ct)
+        # ct, count, the table
+        nbytes = n * c * 2 + n * 4 + v * h * w * c * 2
         case.backward_ops = (28, 6)
     else:
         case.backward = functools.partial(
-            bp._launch_backward, bp.WINDOW_MEAN, None, proj16, origin, None,
-            None, ct, count, v, h, w, dim, interval, 0.04)
+            bp._launch_backward, bp.WINDOW_MEAN, None, proj16, origin, ct,
+            count, v, h, w, dim, interval, 0.04)
         case.backward_plain = functools.partial(
             bp.window_backward_plain, dim, interval, origin, 0.04, proj,
             count.reshape(dim), ct.reshape(*dim, c), h, w)
@@ -211,10 +217,9 @@ def add_backward(case: Case, feats, proj, origin, count, world, dim, interval,
     case.backward_bytes = nbytes + v * 64 + 12 + v * h * w * c * 4
     case.backward_exponent = functools.partial(
         bp.fixed_point_exponent, n, ct.float().abs().amax(),
-        *((feats.float().abs().amax(), v) if coords is not None else ()))
+        *((feats.float().abs().amax(), v) if variance else ()))
     f_lib = feats[:, 0].permute(0, 3, 1, 2).float().contiguous().requires_grad_(True)
-    lib_out = yardstick(f_lib, proj[:, 0].float(), world, h, w,
-                        coords is not None)[0]
+    lib_out = yardstick(f_lib, proj[:, 0].float(), world, h, w, variance)[0]
     case.backward_library = functools.partial(
         torch.autograd.grad, lib_out, f_lib, ct.float().T.contiguous(),
         retain_graph=True)
@@ -298,10 +303,14 @@ def time_case(case: Case, v: int, direction: str = "forward") -> dict:
         else (case.backward, case.backward_plain, case.backward_library,
               BACKWARD_KERNEL))
     ms, windows, parts = device_ms(run, iters, kernel)
+    # the bound were the rows read as a coordinate list ([N, 4] int32 and
+    # an [N] mask), as the JAX signature passes them
+    extra = (dict(bound_with_list_ms=case.bound(v, direction, case.list_bytes)[0])
+             if case.list_bytes else {})
     return dict(ms=ms, profiler_windows=windows, parts=parts,
                 call_ms=cuda_ms(run, iters),
                 plain_ms=cuda_ms(plain, max(3, iters // 5)),
-                bound_ms=bound, bound_by=bound_by,
+                bound_ms=bound, bound_by=bound_by, **extra,
                 library_ms=cuda_ms(library, max(3, iters // 5)))
 
 

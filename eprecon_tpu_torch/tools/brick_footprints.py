@@ -6,8 +6,8 @@ gradient in device memory.
 
     python -m eprecon_tpu_torch.tools.brick_footprints [BRICK ...]
 
-BRICK is XxYxZ (default: 8x8x8 4x8x8 4x4x8 4x4x4 for the windows; the
-occupancy init's coordinate list takes row runs of 128, 64, 32 and 16).
+BRICK is XxYxZ (default: 8x8x8 4x8x8 4x4x8 4x4x4; the occupancy init's
+grid is a window too).
 Per shape and brick it prints the non-empty brick-views, the visible
 voxel-corners that carry weight, the distinct (brick-view, pixel) pairs
 they land on (one 8-channel sum each, the global atomics of the box path
@@ -27,7 +27,6 @@ from eprecon_tpu_torch.ops import back_project as bp
 from eprecon_tpu_torch.ops.grid import dense_coords
 from eprecon_tpu_torch.tools.bench_back_project import SHAPES
 
-RUNS = (128, 64, 32, 16)
 BRICKS = ((8, 8, 8), (4, 8, 8), (4, 4, 8), (4, 4, 4))
 
 
@@ -71,14 +70,10 @@ def main() -> int:
         grid = dense_coords(dim, "cpu").reshape(-1, 3)
         world = (grid * interval).float() * 0.04 + origin
         n = grid.shape[0]
-        rows = name == "occ_init_variance"
         print(f"== {name}: N={n} C={c} {h}x{w}", flush=True)
-        for br in [(r, 1, 1) for r in RUNS] if rows else bricks:
-            if rows:
-                bid = torch.arange(n) // br[0]
-            else:
-                gy, gz = math.ceil(dim[1] / br[1]), math.ceil(dim[2] / br[2])
-                bid = ((grid[:, 0] // br[0]) * gy + grid[:, 1] // br[1]) * gz + grid[:, 2] // br[2]
+        for br in bricks:
+            gy, gz = math.ceil(dim[1] / br[1]), math.ceil(dim[2] / br[2])
+            bid = ((grid[:, 0] // br[0]) * gy + grid[:, 1] // br[1]) * gz + grid[:, 2] // br[2]
             kept, corners, distinct, areas = footprints(
                 world, bid, int(bid.max()) + 1, proj_all[:, scale], h, w)
             q = torch.quantile(areas, torch.tensor([0.5, 0.9, 0.99, 1.0])).tolist()

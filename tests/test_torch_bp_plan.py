@@ -3,8 +3,10 @@ plan_launch, plan_backward, view_tile_plan), checked on the CPU at the main
 path's four call shapes and at small ones: the bricks tile the voxels, the
 grid fills the card, and the shared memory and registers of the CTAs that
 share an SM fit in it; the backward's channel splits cover the channels and
-its box accumulator holds the boxes it takes; the view tiles cover every
-(view, channel, visible record) once, in one wave of clusters.
+its int64 box holds the boxes it takes, whose sums (the kernel's word
+arithmetic and index arithmetic, emulated) give the plain backward's bits;
+the view tiles cover every (view, channel, visible record) once, in one
+wave of clusters.
 
 The tiling below is the kernels' own index arithmetic (csrc/back_project.cu):
 brick c of a window is (c // (gy*gz), c // gz % gy, c % gz) and slot l of a
@@ -29,7 +31,7 @@ from eprecon_tpu_torch.ops import back_project as bp
 V = 9
 # (extent, channels, feature h, w, batch, mode)
 PATH = {
-    "occ_init_variance": ((110592,), 32, 60, 80, 1, bp.VARIANCE),
+    "occ_init_variance": ((48, 48, 48), 32, 60, 80, 1, bp.VARIANCE),
     "stage0_window": ((24, 24, 24), 80, 30, 40, 1, bp.WINDOW_MEAN),
     "stage1_window": ((48, 48, 48), 40, 60, 80, 1, bp.WINDOW_MEAN),
     "stage2_window": ((96, 96, 96), 24, 120, 160, 1, bp.WINDOW_MEAN),
@@ -42,6 +44,10 @@ SMALL = {
     "one_voxel": ((1, 1, 1), 8, 4, 4, 1, bp.WINDOW_MEAN),
     "rows_two_batches": ((686,), 32, 15, 20, 2, bp.VARIANCE),
     "few_rows": ((3,), 16, 4, 4, 1, bp.VARIANCE),
+    # the occupancy init's grid as the JAX signature's coordinate list
+    "occ_init_rows": ((110592,), 32, 60, 80, 1, bp.VARIANCE),
+    "variance_ragged": ((10, 12, 9), 32, 15, 20, 1, bp.VARIANCE),
+    "variance_narrow": ((16, 16, 16), 8, 15, 20, 1, bp.VARIANCE),
 }
 ALL = {**PATH, **SMALL}
 
@@ -156,38 +162,43 @@ def _bwd(shape):
 
 
 def _backward_plans(name):
-    """The window mean's brick plan for every channel split (the largest
-    brick each allows), and the plan the backward takes: per-voxel for the
-    variance's coordinate list, view tiles for a window whose bricks cannot
-    pay."""
+    """A window's brick plan for every channel split (the largest brick
+    each allows), and the plan the backward takes (view tiles for a window
+    mean whose bricks cannot pay); none for a coordinate list, whose
+    backward has no plan (it raises)."""
     extent, c, h, w, b, mode = ALL[name]
+    if len(extent) == 1:
+        with pytest.raises(ValueError, match="dense window"):
+            _bwd(ALL[name])
+        return []
     nvec = c // 8
-    plans = [] if mode == bp.VARIANCE else [
-        bp.plan_backward_brick(extent, c, h, w, V,
-                               bp.backward_brick_choices(extent, cvec, V)[0], cvec)
-        for cvec in range(1, nvec + 1) if nvec % cvec == 0]
+    plans = [
+        bp.plan_backward_brick(extent, c, h, w, V, choices[0], cvec, mode=mode)
+        for cvec in range(1, nvec + 1) if nvec % cvec == 0
+        for choices in [bp.backward_brick_choices(extent, cvec, V, mode)]
+        if choices]
     return plans + [_bwd(ALL[name])]
 
 
 @pytest.mark.parametrize("name", list(ALL))
 def test_backward_takes_bricks_only_where_they_can_pay(name):
-    """Coordinate lists (the variance) take the per-voxel kernel, whose
-    threads own every (voxel, vector) item; windows whose bricks cannot
-    fill two waves of the card (stage 0 and the small ones) take view
-    tiles; the stage 1 and 2 windows take bricks."""
+    """Coordinate lists (the variance's JAX signature) have no backward
+    plan: their rows need not form bricks, and the kernel wrapper raises;
+    window means whose bricks cannot fill two waves of the card (stage 0
+    and the small ones) take view tiles; the stage 1 and 2 windows and
+    every variance window take bricks."""
     extent, c, h, w, b, mode = ALL[name]
+    if len(extent) == 1:
+        assert mode == bp.VARIANCE and _backward_plans(name) == []
+        return
     plan = _bwd(ALL[name])
     if isinstance(plan, bp.TilePlan):
-        assert len(extent) == 3 and mode == bp.WINDOW_MEAN
+        assert mode == bp.WINDOW_MEAN
         assert plan == bp.view_tile_plan(c, h, w, V)
-    elif plan.per_voxel:
-        assert mode == bp.VARIANCE
-        assert plan.grid * plan.threads >= math.prod(extent) * (c // 8)
-        assert (plan.grid - 1) * plan.threads < math.prod(extent) * (c // 8)
-        assert plan.smem_bytes == 0
     else:
-        assert len(extent) == 3 and mode == bp.WINDOW_MEAN
-        assert plan.grid >= bp.MIN_WAVES * plan.ctas_per_sm * bp.SM_COUNT
+        assert len(extent) == 3
+        if mode == bp.WINDOW_MEAN:
+            assert plan.grid >= bp.MIN_WAVES * plan.ctas_per_sm * bp.SM_COUNT
     assert isinstance(plan, bp.TilePlan) == (
         mode == bp.WINDOW_MEAN and name not in ("stage1_window", "stage2_window"))
 
@@ -195,69 +206,61 @@ def test_backward_takes_bricks_only_where_they_can_pay(name):
 @pytest.mark.parametrize("name", list(ALL))
 def test_backward_bricks_and_splits_cover_every_item_once(name):
     """Every (voxel, channel vector) belongs to exactly one CTA, for every
-    channel split of the brick plans and for the per-voxel plan (thread j
-    of the launch owns item j); view tiles cover every (view, channel,
-    record) once (test_tile_plan_covers_every_view_channel_and_record_once)."""
+    channel split of the brick plans; view tiles cover every (view,
+    channel, record) once
+    (test_tile_plan_covers_every_view_channel_and_record_once)."""
     extent, c, h, w, b, mode = ALL[name]
     nvec, n = c // 8, math.prod(extent)
     for plan in _backward_plans(name):
         if isinstance(plan, bp.TilePlan):
             continue
         hits = np.zeros((n, nvec), np.int64)
-        if plan.per_voxel:
-            item = np.arange(plan.grid * plan.threads)
-            item = item[item < n * nvec]
-            np.add.at(hits, (item // nvec, item % nvec), 1)
-        else:
-            splits = nvec // plan.cvec
-            assert plan.grid % splits == 0 and nvec % plan.cvec == 0
-            rows = _rows_of_every_cta(extent, plan, plan.grid // splits)
-            assert (rows >= 0).any(axis=1).all()
-            for cta in range(plan.grid):
-                r = rows[cta // splits]
-                vec0 = cta % splits * plan.cvec
-                hits[r[r >= 0], vec0:vec0 + plan.cvec] += 1
+        splits = nvec // plan.cvec
+        assert plan.grid % splits == 0 and nvec % plan.cvec == 0
+        rows = _rows_of_every_cta(extent, plan, plan.grid // splits)
+        assert (rows >= 0).any(axis=1).all()
+        for cta in range(plan.grid):
+            r = rows[cta // splits]
+            vec0 = cta % splits * plan.cvec
+            hits[r[r >= 0], vec0:vec0 + plan.cvec] += 1
         assert (hits == 1).all(), plan
 
 
 @pytest.mark.parametrize("name", list(ALL))
 def test_backward_layout_and_resources(name):
-    """Brick plans: regions aligned and large enough, the per-pixel counts
-    last (one more than the box's pixels: the total); the CTAs that share
-    an SM fit its shared memory and registers; the threads own every
-    (voxel, vector) item of a CTA. Per-voxel plans: no shared memory, and
-    the CTAs their registers allow."""
+    """Brick plans: regions aligned and large enough, the int64 box last
+    (box_px pixels x the CTA's channels, two 32-bit words each, to the
+    total); the CTAs that share an SM fit its shared memory and the
+    registers of the mode's instance; the threads own every (voxel,
+    vector) item of a CTA, one each."""
     extent, c, h, w, b, mode = ALL[name]
     for plan in _backward_plans(name):
         if isinstance(plan, bp.TilePlan):
             _check_tile_resources(plan, h, w)
             continue
-        if plan.per_voxel:
-            regs = bp.PER_VOXEL_REGS_PER_THREAD
-            assert plan.layout == () and plan.threads == bp.MAX_THREADS
-            assert plan.ctas_per_sm == 4 * (16384 // (regs * 32)) // 8
-            continue
         bvox = math.prod(plan.brick)
         sizes = bp.backward_regions(V, bvox, plan.cvec, plan.box_px)
         _check_layout(plan.layout, sizes)
-        assert plan.layout[-1] - plan.layout[-2] == -(-(plan.box_px + 1) * 4 // 16) * 16
-        assert 0 < plan.box_px <= min(h * w, bp.BOX_MAX_PX)  # never above an image
+        assert plan.layout[-1] - plan.layout[-2] == bp._align16(
+            plan.box_px * (plan.cvec * 8 + 1) * 8)
+        assert 0 < plan.box_px <= h * w  # never above an image
+        assert min(bp.BOX_MIN_PX, h * w) <= plan.box_px <= bp.BOX_MAX_PX[mode]
         allocated = -(-plan.smem_bytes // 128) * 128
         assert 0 < plan.smem_bytes <= 227 * 1024
+        assert plan.ctas_per_sm >= 1
         assert plan.ctas_per_sm * (allocated + 1024) <= 228 * 1024
-        regs = bp.BWD_REGS_PER_THREAD
+        regs = bp.BWD_REGS_PER_THREAD[mode]
         assert plan.ctas_per_sm * plan.threads // 32 <= 4 * (16384 // (regs * 32))
         assert plan.threads % 32 == 0 and 32 <= plan.threads <= bp.MAX_THREADS
-        assert 1 <= plan.items <= bp.BWD_MAX_ITEMS
-        assert plan.items * plan.threads >= bvox * plan.cvec
+        assert plan.items == 1 and plan.threads >= bvox * plan.cvec
 
 
 @pytest.mark.parametrize("name", list(PATH))
 def test_plans_assume_the_ctas_the_card_holds(name):
     """At the main path's shapes each plan's CTAs per SM is the number the
     card's occupancy calculator gives for the modelled registers (chip_smoke
-    holds it against the card): the forward and the per-voxel backward by
-    registers alone (the grid does not cap it), a brick backward also by
+    holds it against the card): the forward by registers alone (the grid
+    does not cap it), a brick backward also by
     its shared memory, which holds exactly that many CTAs, and view tiles
     by shared memory and registers, the visible-records pass by
     registers."""
@@ -273,35 +276,34 @@ def test_plans_assume_the_ctas_the_card_holds(name):
             228 * 1024 // allocated)
         assert bwd.visible_ctas_per_sm == bp._resident(
             bp.MAX_THREADS, bp.VISIBLE_REGS_PER_THREAD)
-    elif bwd.per_voxel:
-        assert bwd.ctas_per_sm == bp._resident(
-            bwd.threads, bp.PER_VOXEL_REGS_PER_THREAD)
     else:
         allocated = -(-bwd.smem_bytes // 128) * 128 + 1024
         assert bwd.ctas_per_sm == min(
-            bp._resident(bwd.threads, bp.BWD_REGS_PER_THREAD),
+            bp._resident(bwd.threads, bp.BWD_REGS_PER_THREAD[mode]),
             228 * 1024 // allocated)
 
 
 def test_register_table_covers_every_kernel_instance():
     """The plans model the registers of exactly the instances the library
-    launches (csrc/back_project.cu pick, pick_backward, pick_tile, the
-    visible-records pass and the variance's per-voxel kernel)."""
+    launches (csrc/back_project.cu pick, pick_backward, pick_tile and the
+    visible-records pass), and nothing of a per-voxel backward is left."""
     src = (Path(bp.__file__).resolve().parents[1] / "csrc" / "back_project.cu").read_text()
     modes = {"false": bp.WINDOW_MEAN, "true": bp.VARIANCE}
     fwd = {(modes[m], int(k)) for k, m in
            re.findall(r"return back_project_kernel<(\d), (true|false)>;", src)}
     assert fwd == set(bp.REGS_PER_THREAD)
     assert {m: max(k for mm, k in fwd if mm == m) for m in modes.values()} == bp.MAX_ITEMS
-    bwd = {int(k) for k in re.findall(r"return back_project_backward_kernel<(\d)>;", src)}
-    assert bwd == set(range(1, bp.BWD_MAX_ITEMS + 1))
+    bwd = {modes[m] for m in re.findall(
+        r"return back_project_backward_kernel<(true|false)>;", src)}
+    assert bwd == set(bp.BWD_REGS_PER_THREAD) == set(modes.values())
     tiles = {int(k) for k in re.findall(r"return back_project_backward_tile<(\d+)>;", src)}
     assert tiles == set(bp.TILE_REGS_PER_THREAD)
-    # one instance each, no template: the table holds a number
-    for kernel, regs in (("back_project_backward_by_voxel", bp.PER_VOXEL_REGS_PER_THREAD),
-                         ("back_project_backward_visible", bp.VISIBLE_REGS_PER_THREAD)):
-        assert re.search(r"void __launch_bounds__\(kMaxThreads\) %s\(" % kernel, src)
-        assert isinstance(regs, int) and regs % 8 == 0
+    # one instance, no template: the table holds a number
+    assert re.search(r"void __launch_bounds__\(kMaxThreads\) "
+                     r"back_project_backward_visible\(", src)
+    assert isinstance(bp.VISIBLE_REGS_PER_THREAD, int)
+    assert bp.VISIBLE_REGS_PER_THREAD % 8 == 0
+    assert "by_voxel" not in src and not hasattr(bp, "PER_VOXEL_REGS_PER_THREAD")
 
 
 def _boxes(shape, plan, depth):
@@ -339,16 +341,15 @@ def test_backward_box_region_holds_the_boxes_it_takes(name, depth):
     """The kernel sums a brick-view per pixel in shared memory when its box
     (rows x cols pixels) has at most box_px pixels, and scatters it
     straight into the gradient otherwise: with the cameras 2 m away most
-    stage-2 boxes fit, 0.5 m away some do not; the counts of each box
-    taken (and the total after them) fit the region the layout gives
-    them."""
+    stage-2 boxes fit, 0.5 m away some do not; every box taken, at the
+    CTA's channels in int64, fits the region the layout gives it."""
     extent, c, h, w, b, mode = ALL[name]
     plan = _bwd(ALL[name])
     region = plan.layout[-1] - plan.layout[-2]
     boxes = _boxes(ALL[name], plan, depth)
     taken = [rw * cl for rw, cl in boxes if rw * cl <= plan.box_px]
-    assert taken and (max(taken) + 1) * 4 <= region
-    assert (plan.box_px + 1) * 4 <= region < (plan.box_px + 2) * 4 + 16
+    assert taken and max(taken) * (plan.cvec * 8 + 1) * 8 <= region
+    assert region == bp._align16(plan.box_px * (plan.cvec * 8 + 1) * 8)
     if depth < 1:
         assert len(taken) < len(boxes)
     else:
@@ -553,3 +554,264 @@ def test_tile_partition_emulation_matches_the_plain_backward(dim, interval, c,
         assert not torch.isnan(got).any()
         err = (got - want).abs().max().item()
         assert err <= 1e-5 * want.abs().max().item(), err
+
+
+# ---------------------------------------------------------------------------
+# the brick backward's int64 box (both modes)
+# ---------------------------------------------------------------------------
+
+def _add_words(lo, hi, at, x):
+    """csrc/back_project.cu add_words for terms x [K] int64 into entries
+    at [K] of the uint32 planes lo and hi, one term per entry at a time in
+    the order given (a warp's atomics on distinct entries): the low word's
+    old value tells the carry into the high word."""
+    xu = x.astype(np.uint64)
+    x_lo = (xu & np.uint64(0xffffffff)).astype(np.uint32)
+    x_hi = (xu >> np.uint64(32)).astype(np.uint32)
+    order = np.argsort(at, kind="stable")
+    rank = np.empty(len(at), np.int64)
+    starts = np.r_[0, np.flatnonzero(np.diff(at[order])) + 1]
+    rank[order] = np.arange(len(at)) - np.repeat(starts, np.diff(np.r_[starts, len(at)]))
+    for r in range(int(rank.max()) + 1 if len(at) else 0):
+        sel = rank == r
+        a, l, h = at[sel], x_lo[sel], x_hi[sel]
+        old = lo[a]
+        lo[a] = old + l
+        hi[a] = hi[a] + h + (lo[a] < old).astype(np.uint32)
+
+
+def _add_split(lo, hi, at, x, sb):
+    """csrc/back_project.cu add_split: the low sb bits of each term into
+    lo, the rest (signed) into hi, no carry; wrapping uint32 sums."""
+    np.add.at(lo, at, (x & ((1 << sb) - 1)).astype(np.uint32))
+    np.add.at(hi, at, (x >> sb).astype(np.int64).astype(np.uint32))
+
+
+def _words_to_int64(lo, hi, sb=0):
+    if sb:
+        return hi.view(np.int32).astype(np.int64) * (1 << sb) + lo.astype(np.int64)
+    return ((hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)).view(np.int64)
+
+
+def test_box_split_words_add_as_int64():
+    """The carry-free split (csrc/back_project.cu split_bits, add_split):
+    at most 2^lb terms each below 2^(62 - nbits), nbits >= 2 lb, summed in
+    two uint32 words at sb = 32 - lb, give the int64 sum at the extremes
+    of the rule (every term at its largest magnitude, either sign)."""
+    rng = np.random.default_rng(1)
+    for lb, nbits in ((6, 12), (7, 17), (8, 16), (9, 20)):
+        sb, t = 32 - lb, 1 << lb
+        top = (1 << (62 - nbits))
+        for x in (np.full(t, top), np.full(t, -top),
+                  rng.integers(-top, top + 1, t), np.full(t, (1 << sb) - 1)):
+            x = x.astype(np.int64)
+            lo, hi = np.zeros(1, np.uint32), np.zeros(1, np.uint32)
+            _add_split(lo, hi, np.zeros(t, np.int64), x, sb)
+            assert _words_to_int64(lo, hi, sb)[0] == x.sum()
+
+
+def test_box_words_add_as_int64():
+    """Terms of either sign up to 2^62 added into two 32-bit words with
+    the carry rule give the int64 sum, in any order."""
+    rng = np.random.default_rng(0)
+    for scale in (2 ** 20, 2 ** 42, 2 ** 56):
+        x = (rng.standard_normal(5000) * scale).astype(np.int64)
+        at = rng.integers(0, 17, 5000)
+        want = np.zeros(17, np.int64)
+        np.add.at(want, at, x)
+        for seed in (1, 2):
+            perm = np.random.default_rng(seed).permutation(5000)
+            lo, hi = np.zeros(17, np.uint32), np.zeros(17, np.uint32)
+            _add_words(lo, hi, at[perm], x[perm])
+            np.testing.assert_array_equal(_words_to_int64(lo, hi), want)
+
+
+def _view_terms(mode, dim, interval, origin, voxel_size, feats, proj, count, ct):
+    """Per view, the plain backward's fixed-point terms: for each corner q,
+    (rows, corner pixel column, row, terms [rows, C] int64) of the corners
+    that carry weight, formed as scatter_corners forms them; and the fixed
+    point (e, nan)."""
+    v, _, h, w, c = feats.shape
+    n = math.prod(dim)
+    ct = ct.reshape(n, c).float()
+    if mode == bp.WINDOW_MEAN:
+        fixed = bp.fixed_point_exponent(n, ct.abs().amax())
+        world = bp._window_world(dim, interval, origin.float(), voxel_size, "cpu")
+        d = ct / count.reshape(-1, 1).clamp(min=1.0)
+        views = [(*bp.project_to_view(world, proj[vi, 0].float(), h, w), d)
+                 for vi in range(v)]
+    else:
+        fixed = bp.fixed_point_exponent(n, ct.abs().amax(),
+                                        feats.float().abs().amax(), v)
+        coords, valid = bp._window_rows(dim, interval, "cpu")
+        s1, s2, _ = bp._variance_sums(coords, valid, origin, voxel_size, feats, proj)
+        denom = count.reshape(-1, 1).clamp(min=1.0)
+        mean = s1 / denom
+        g = torch.where(s2 / denom - mean * mean >= 0, 2 * ct / denom, 0.0)
+        views = [(u, vv, m, g * (s - mean)) for u, vv, m, s, _ in bp._variance_views(
+            coords, valid, origin, voxel_size, feats, proj)]
+    scale = bp._pow2(fixed[0])
+    out = []
+    for u, vv, m, d in views:
+        u0, v0 = torch.floor(u), torch.floor(vv)
+        du, dv = u - u0, vv - v0
+        corners = []
+        for cy, cx in ((0, 0), (0, 1), (1, 0), (1, 1)):
+            pu, pv = u0.long() + cx, v0.long() + cy
+            ok = m & (pu <= w - 1) & (pv <= h - 1)
+            wgt = (du if cx else 1 - du) * (dv if cy else 1 - dv)
+            rows = ok.nonzero()[:, 0]
+            corners.append((rows.numpy(), pu[rows].numpy(), pv[rows].numpy(),
+                            torch.round(wgt[rows, None] * d[rows] * scale).long().numpy()))
+        out.append((m.numpy(), torch.floor(u).long().numpy(),
+                    torch.floor(vv).long().numpy(), corners))
+    return out, fixed
+
+
+def _emulate_bricks(plan, dim, h, w, c, views, seed):
+    """The brick backward's sums with the kernel's index arithmetic: per
+    CTA (brick, channel split) and view, the visible voxels' pixel box
+    (one more column and row, clamped); a box of at most box_px pixels
+    takes every term into the CTA's two word planes (entry px * (cs + 1) +
+    c, px = (row - vmin) * cols + column - umin) in a shuffled order, then
+    each (pixel, vector) is read back and added to the gradient at the
+    kernel's flush address; any other box adds its terms straight in.
+    The box adds without a carry (add_split) where the kernel's
+    split_bits allows it for the brick's voxels and the rows' count.
+    Returns the int64 gradient [V, H*W, C], the brick-view tallies (in
+    box, direct, empty) and the split bits."""
+    rng = np.random.default_rng(seed)
+    lb = math.prod(plan.brick).bit_length() - 1
+    sb = 32 - lb if bp._ceil_log2(math.prod(dim)) >= 2 * lb else 0
+    splits = c // 8 // plan.cvec
+    cs = plan.cvec * 8
+    ctas = _rows_of_every_cta(dim, plan, plan.grid // splits)
+    grad = np.zeros((len(views), h * w * c), np.int64)
+    tallies = [0, 0, 0]
+    for vi, (m, iu_all, iv_all, corners) in enumerate(views):
+        slot = np.full(m.shape[0], -1)
+        for cta in range(plan.grid):
+            rows = ctas[cta // splits]
+            vec0 = cta % splits * plan.cvec
+            seen = rows[(rows >= 0)]
+            seen = seen[m[seen]]
+            if len(seen) == 0:
+                tallies[2] += 1
+                continue
+            umin, umax = iu_all[seen].min(), iu_all[seen].max()
+            vmin, vmax = iv_all[seen].min(), iv_all[seen].max()
+            cols = min(umax + 1, w - 1) - umin + 1
+            rws = min(vmax + 1, h - 1) - vmin + 1
+            in_box = rws * cols <= plan.box_px
+            tallies[0 if in_box else 1] += 1
+            slot[:] = -1
+            slot[seen] = 1
+            mine = [(pu[slot[r] >= 0], pv[slot[r] >= 0],
+                     t[slot[r] >= 0][:, vec0 * 8:vec0 * 8 + cs])
+                    for r, pu, pv, t in corners]
+            if not in_box:
+                for pu, pv, t in mine:
+                    at = ((pv * w + pu) * c + vec0 * 8)[:, None] + np.arange(cs)
+                    np.add.at(grad[vi], at.ravel(), t.ravel())
+                continue
+            lo = np.zeros(plan.box_px * (cs + 1), np.uint32)
+            hi = np.zeros(plan.box_px * (cs + 1), np.uint32)
+            for pu, pv, t in mine:
+                px = (pv - vmin) * cols + pu - umin
+                at = (px * (cs + 1))[:, None] + np.arange(cs)
+                perm = rng.permutation(at.size)
+                if sb:
+                    _add_split(lo, hi, at.ravel()[perm], t.ravel()[perm], sb)
+                else:
+                    _add_words(lo, hi, at.ravel()[perm], t.ravel()[perm])
+            box = _words_to_int64(lo, hi, sb).reshape(plan.box_px, cs + 1)[
+                :, :cs].reshape(plan.box_px, plan.cvec, 8)
+            for px in range(rws * cols):
+                for cv in range(plan.cvec):
+                    if not box[px, cv].any():
+                        continue
+                    r = px // cols
+                    at = ((vmin + r) * w + umin + px - r * cols) * c + (vec0 + cv) * 8
+                    grad[vi, at:at + 8] += box[px, cv]
+    return grad.reshape(len(views), h * w, c), tallies, sb
+
+
+@pytest.mark.parametrize("mode,dim,c,box_px", [
+    (bp.WINDOW_MEAN, (12, 12, 12), 16, None),  # every box fits
+    (bp.WINDOW_MEAN, (10, 12, 9), 24, 12),     # ragged bricks, big boxes direct
+    (bp.VARIANCE, (12, 12, 12), 16, None),
+    (bp.VARIANCE, (10, 12, 9), 32, 12),
+])
+def test_brick_box_emulation_matches_the_plain_backward(mode, dim, c, box_px):
+    """The brick backward's partition and box (every brick-view's corners
+    summed per pixel in two 32-bit word planes in any order, with or
+    without a carry, then added at the flush address, or scattered straight
+    in when its box exceeds the plan's) gives the plain backward bit for
+    bit, at every channel split with its largest and smallest brick, with
+    a tally per (CTA, view)."""
+    h, w, v = 9, 11, 4
+    rng = np.random.default_rng(5)
+    origin = torch.tensor([[0.0013, 0.0027, 0.0031]])
+    proj = _cameras(v, h, w)
+    feats = torch.from_numpy(rng.standard_normal((v, 1, h, w, c)).astype(np.float32)
+                             ).to(torch.bfloat16)
+    ct = torch.from_numpy(rng.standard_normal((math.prod(dim), c)).astype(np.float32)
+                          ).to(torch.bfloat16)
+    if mode == bp.WINDOW_MEAN:
+        count = bp.back_project_window_plain(dim, 1, origin, 0.05, feats, proj)[1]
+        want = bp.window_backward_plain(dim, 1, origin, 0.05, proj, count,
+                                        ct.reshape(*dim, c), h, w)
+    else:
+        count = bp.back_project_variance_window_plain(dim, 1, origin, 0.05, feats,
+                                                      proj)[1]
+        want = bp.variance_window_backward_plain(dim, 1, origin, 0.05, feats, proj,
+                                                 count, ct)
+    assert (count > 0).sum() > 0.3 * count.numel() and (count == 0).any()
+    views, fixed = _view_terms(mode, dim, 1, origin, 0.05, feats, proj, count, ct)
+    directs, splits = 0, set()
+    for cvec in (d for d in range(1, c // 8 + 1) if (c // 8) % d == 0):
+        choices = bp.backward_brick_choices(dim, cvec, v, mode)
+        for brick in {choices[0], choices[-1]}:  # the largest and the smallest
+            plan = bp.plan_backward_brick(dim, c, h, w, v, brick, cvec, box_px, mode)
+            got, tallies, sb = _emulate_bricks(plan, dim, h, w, c, views, seed=cvec)
+            assert sum(tallies) == plan.grid * v and tallies[0] > 0
+            directs += tallies[1]
+            splits.add(sb > 0)
+            assert torch.equal(bp.fixed_to_float(torch.from_numpy(got), fixed), want)
+    assert (directs > 0) == (box_px is not None)
+    assert splits == {True, False}  # both ways of adding into the box
+
+
+def test_variance_takes_bricks_at_the_path_shape():
+    """The occupancy init's 48^3 x 32 grid at 60x80 as a window: 3-D bricks
+    of one item per thread (the variance's instance), a channel split that
+    divides its 4 vectors, CTAs per SM from the variance's registers and
+    the shared memory of its records and box, a box of BOX_MIN_PX to
+    BOX_MAX_PX pixels, and a grid of two waves; as a coordinate list it
+    has no backward plan."""
+    extent, c, h, w, b, mode = PATH["occ_init_variance"]
+    plan = _bwd(PATH["occ_init_variance"])
+    assert isinstance(plan, bp.BackwardPlan)
+    assert plan.items == 1 and (c // 8) % plan.cvec == 0
+    assert math.prod(plan.brick) * plan.cvec <= plan.threads
+    assert bp.BOX_MIN_PX <= plan.box_px <= bp.BOX_MAX_PX[mode]
+    assert plan.ctas_per_sm == min(
+        bp._resident(plan.threads, bp.BWD_REGS_PER_THREAD[bp.VARIANCE]),
+        bp._smem_ctas(plan.smem_bytes))
+    assert plan.grid >= bp.MIN_WAVES * plan.ctas_per_sm * bp.SM_COUNT
+    with pytest.raises(ValueError, match="dense window"):
+        bp.plan_backward((math.prod(extent),), c, h, w, V, mode)
+
+
+def test_ablation_variants_find_their_source_text():
+    """tools/ablate_back_project.py builds each variant by text
+    substitutions of csrc/back_project.cu (on the card only): every
+    substitution finds its text, and changes the source."""
+    from eprecon_tpu_torch.tools import ablate_back_project as ablate
+
+    src = (Path(bp.__file__).resolve().parents[1] / "csrc" / "back_project.cu").read_text()
+    sources = ablate.variant_sources(src)
+    assert set(sources) == set(ablate.VARIANTS)
+    assert all((text == src) == (not ablate.VARIANTS[name])
+               for name, text in sources.items())
+

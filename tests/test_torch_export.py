@@ -130,7 +130,7 @@ def test_graph_names_the_kernels_as_custom_ops(exported):
     init's variance and the three stages' window means."""
     assert collections.Counter(serving.custom_op_nodes(exported["ep"])) == {
         "eprecon_tpu_torch.window_mean.default": 3,
-        "eprecon_tpu_torch.variance.default": 1}
+        "eprecon_tpu_torch.variance_window.default": 1}
 
 
 def test_one_artifact_serves_two_positions(exported, live):
@@ -173,7 +173,7 @@ def test_served_from_disk_without_the_model_code(exported, live):
     assert exported["proc"].returncode == 0, err[-4000:]
     res = torch.load(exported["work"] / "results.pt")
     assert res["model_modules"] == []
-    assert res["custom_ops"] == ["eprecon_tpu_torch.variance.default",
+    assert res["custom_ops"] == ["eprecon_tpu_torch.variance_window.default",
                                  "eprecon_tpu_torch.window_mean.default"]
     assert res["launches"] == {}  # CPU tensors take the plain versions
     for got, (want, _, _) in zip(res["outputs"], live, strict=True):
@@ -206,6 +206,8 @@ def _op_args(op):
     _, count = bp.back_project_window((4, 4, 4), 1, origin, 0.1, feats, proj)
     _, var_count = bp.back_project_variance(coords, valid, origin, 0.1, feats,
                                             proj)
+    _, win_count = bp.back_project_variance_window((3, 4, 5), 2, origin, 0.1,
+                                                   feats, proj)
     return {
         "window_mean": (feats.float().requires_grad_(), origin, proj,
                         [4, 4, 4], 1, 0.1),
@@ -216,11 +218,17 @@ def _op_args(op):
                      proj, 0.1),
         "variance_backward": (feats, coords, valid, origin, proj, var_count,
                               torch.randn(20, c, generator=g), 0.1),
+        "variance_window": (feats.float().requires_grad_(), origin, proj,
+                            [3, 4, 5], 2, 0.1),
+        "variance_window_backward": (feats, origin, proj, win_count,
+                                     torch.randn(60, c, generator=g), [3, 4, 5],
+                                     2, 0.1),
     }[op]
 
 
 @pytest.mark.parametrize("op", ["window_mean", "window_mean_backward",
-                                "variance", "variance_backward"])
+                                "variance", "variance_backward",
+                                "variance_window", "variance_window_backward"])
 def test_custom_op_passes_opcheck(op):
     torch.library.opcheck(getattr(torch.ops.eprecon_tpu_torch, op).default,
                           _op_args(op))

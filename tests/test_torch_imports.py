@@ -131,7 +131,8 @@ def test_serving_module_imports_without_the_model_code():
         "from eprecon_tpu_torch.inference import serving\n"
         "from eprecon_tpu_torch import fragment_io as io\n"
         "for op in ('window_mean', 'window_mean_backward', 'variance',\n"
-        "           'variance_backward'):\n"
+        "           'variance_backward', 'variance_window',\n"
+        "           'variance_window_backward'):\n"
         "    getattr(torch.ops.eprecon_tpu_torch, op)\n"
         "for cls in (io.FragmentInputs, io.RecurrentState, io.DenseGlobalLevel,\n"
         "            io.DenseTargetLevel, io.PanopticGlobalDense):\n"
@@ -264,7 +265,7 @@ def test_wrapper_never_falls_back(monkeypatch, tmp_path):
                    torch.zeros(2, 1, 16), torch.zeros(1, 3), None, None, 8, 4, 4)
     with pytest.raises(ValueError, match="needs CUDA"):
         bp._launch_backward(bp.WINDOW_MEAN, None, torch.zeros(2, 1, 16),
-                            torch.zeros(1, 3), None, None,
+                            torch.zeros(1, 3),
                             torch.zeros(8, 8, dtype=torch.bfloat16),
                             torch.zeros(8), 2, 4, 4, (2, 2, 2))
     monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path)

@@ -169,6 +169,7 @@ def test_variance_kernel_two_batches_bitwise(cuda):
 
 
 PATH_SHAPES = [((110592,), 32, 60, 80, bp.VARIANCE),
+               ((48, 48, 48), 32, 60, 80, bp.VARIANCE),
                ((24, 24, 24), 80, 30, 40, bp.WINDOW_MEAN),
                ((48, 48, 48), 40, 60, 80, bp.WINDOW_MEAN),
                ((96, 96, 96), 24, 120, 160, bp.WINDOW_MEAN)]
@@ -176,12 +177,16 @@ PATH_SHAPES = [((110592,), 32, 60, 80, bp.VARIANCE),
 
 @pytest.mark.parametrize("extent,c,h,w,mode", PATH_SHAPES)
 def test_card_holds_the_ctas_the_plan_assumes(cuda, extent, c, h, w, mode):
-    """At the main path's four call shapes the occupancy calculator, on the
-    built kernels, fits as many CTAs per SM as the plans assume, forward and
-    backward (the plans model each instance's registers; a brick backward
-    cuts shared memory for that many)."""
+    """At the main path's four call shapes (and the occupancy init's grid
+    as the JAX signature's coordinate list, forward only: its backward has
+    no kernel) the occupancy calculator, on the built kernels, fits as
+    many CTAs per SM as the plans assume, forward and backward (the plans
+    model each instance's registers; a brick backward cuts shared memory
+    for that many)."""
     plan = bp.plan_launch(extent, c, 9, 1, mode)
     assert bp.occupancy(plan, mode) == plan.ctas_per_sm
+    if len(extent) == 1:
+        return
     plan = bp.plan_backward(extent, c, h, w, 9, mode)
     assert bp.occupancy(plan, mode) == plan.ctas_per_sm
     if isinstance(plan, bp.TilePlan):  # stage 0: its clusters in one wave
@@ -247,39 +252,162 @@ def test_window_backward_kernel(cuda, dim, interval, voxel, c):
     _equal(got.reshape(want.shape), want)
 
 
-@pytest.mark.parametrize("c", [8, 32])
-def test_variance_backward_kernel_two_batches(cuda, c):
-    """Variance gradient: kernel vs plain backward, batch 2, invalid rows."""
+def test_coordinate_list_backward_raises_on_the_card(cuda):
+    """The variance over a coordinate list (the JAX signature) runs its
+    forward kernel on the card, but its backward has no kernel: autograd
+    raises, and launches nothing, rather than falling back to the plain
+    version."""
     rng = np.random.default_rng(5)
-    h, w = 15, 20
+    h, w, c = 15, 20, 8
     feats = torch.from_numpy(rng.standard_normal((4, 2, h, w, c))).to(torch.bfloat16)
     xyz = np.stack(np.meshgrid(*[np.arange(0, 14, 2)] * 3, indexing="ij"),
                    -1).reshape(-1, 3)
     coords = torch.from_numpy(np.concatenate([
         np.concatenate([np.full((len(xyz), 1), b), xyz], 1)
         for b in (0, 1)]).astype(np.int32)).to(cuda)
-    valid = torch.from_numpy(rng.uniform(size=coords.shape[0]) > 0.2).to(cuda)
+    valid = torch.ones(coords.shape[0], dtype=torch.bool, device=cuda)
     origin = torch.tensor([[0.002, 0.001, 0.003], [0.011, 0.004, 0.002]]).to(cuda)
     proj = _proj(4, h, w, batch=2).to(cuda)
-    ct = torch.from_numpy(rng.standard_normal((coords.shape[0], c))).to(
-        torch.bfloat16).to(cuda)
     f = feats.to(cuda).requires_grad_(True)
-    before = bp.total_backward_launches()
-    var, count = bp.back_project_variance(coords, valid, origin, 0.05, f, proj)
-    (through_autograd,) = torch.autograd.grad(var, f, ct)
-    # the kernel's f32 gradient, before the cast to the features' bf16
-    got = bp._launch_backward(bp.VARIANCE, f.detach().reshape(4, 2 * h * w, c),
-                              proj.reshape(4, 2, 16), origin, coords,
-                              valid.to(torch.uint8), ct, count, 4, h, w,
-                              voxel_size=0.05)
-    want = bp.variance_backward_plain(coords, valid, origin, 0.05, f.detach(),
-                                      proj, count, ct)
+    before = (bp.total_launches(), bp.total_backward_launches())
+    var, _ = bp.back_project_variance(coords, valid, origin, 0.05, f, proj)
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        torch.autograd.grad(var, f, torch.ones_like(var))
+    assert (bp.total_launches(), bp.total_backward_launches()) == (
+        before[0] + 1, before[1])
+
+
+def _variance_window_case(cuda, dim=(12, 12, 12), c=32, h=15, w=20, depth=1.2,
+                          blind=False):
+    """The variance-window backward kernel and its plain backward on the
+    same inputs (bf16 features, one batch element), and the cotangent they
+    share; `blind`: view 3 faces away from the window, so no voxel is
+    visible in it and the cull drops it from every brick."""
+    rng = np.random.default_rng(8)
+    v, n = 4, math.prod(dim)
+    feats = torch.from_numpy(rng.standard_normal((v, 1, h, w, c))).to(
+        torch.bfloat16).to(cuda)
+    origin = torch.tensor([[0.0013, 0.0027, 0.0031]]).to(cuda)
+    proj = _proj(v, h, w, depth=depth)
+    if blind:
+        proj[3, 0, 2] = -proj[3, 0, 2]  # every voxel behind the camera
+    proj = proj.to(cuda)
+    count = bp.back_project_variance_window_plain(dim, 1, origin, 0.05, feats,
+                                                  proj)[1]
+    ct = torch.from_numpy(rng.standard_normal((n, c))).to(torch.bfloat16).to(cuda)
+    run = lambda **kw: bp._launch_backward(
+        bp.VARIANCE, feats.reshape(v, h * w, c), proj.reshape(v, 1, 16), origin,
+        ct, count, v, h, w, dim, 1, 0.05, **kw)
+    plain = lambda: bp.variance_window_backward_plain(dim, 1, origin, 0.05, feats,
+                                                      proj, count, ct)
+    return run, plain, ct
+
+
+def test_variance_window_kernel_bitwise(cuda, monkeypatch):
+    """The variance over a dense window, at every brick its forward plan
+    may choose, equals its plain version and the coordinate-list kernel
+    over the same rows bit for bit."""
+    rng = np.random.default_rng(9)
+    dim, h, w, c = (10, 12, 9), 15, 20, 32
+    feats = torch.from_numpy(rng.standard_normal((4, 1, h, w, c))).to(
+        torch.bfloat16).to(cuda)
+    origin = torch.tensor([[0.002, 0.001, 0.003]]).to(cuda)
+    args = (dim, 2, origin, 0.05, feats, _proj(4, h, w).to(cuda))
+    want, want_cnt = bp.back_project_variance_window_plain(*args)
+    coords, valid = bp._window_rows(dim, 2, cuda)
+    listed, listed_cnt = bp.back_project_variance(coords, valid, *args[2:])
+    for brick in bp.brick_choices(dim, c, bp.VARIANCE):
+        plan = bp.plan_brick(dim, c, 4, 1, brick, bp.VARIANCE)
+        monkeypatch.setattr(bp, "plan_launch", lambda *_, plan=plan: plan)
+        before = bp.total_launches()
+        got, cnt = bp.back_project_variance_window(*args)
+        torch.cuda.synchronize()
+        assert bp.total_launches() == before + 1
+        assert torch.equal(cnt, want_cnt) and torch.equal(got, want), brick
+        assert torch.equal(got, listed) and torch.equal(cnt, listed_cnt)
+    assert (want_cnt >= 2).any() and (want_cnt < 4).any()
+
+
+@pytest.mark.parametrize("dim,blind", [((12, 12, 12), False), ((10, 12, 9), True)])
+def test_variance_backward_kernel_every_brick_and_split(cuda, monkeypatch, dim,
+                                                        blind):
+    """Every brick and channel split the variance's brick backward may take,
+    with its box and with none (every brick-view scattered straight into
+    the gradient), equals the plain backward bit for bit; the tallies cover
+    every (CTA, view); `blind`: a ragged window and a view that sees no
+    voxel (its brick-views tallied empty)."""
+    run, plain, _ = _variance_window_case(cuda, dim, blind=blind)
+    want = plain()
+    c, h, w = 32, 15, 20
+    for cvec in (1, 2, 4):
+        for brick in bp.backward_brick_choices(dim, cvec, 4, bp.VARIANCE):
+            for px in (None, 0):
+                plan = bp.plan_backward_brick(dim, c, h, w, 4, brick, cvec,
+                                              box_px=px, mode=bp.VARIANCE)
+                monkeypatch.setattr(bp, "plan_backward", lambda *_, plan=plan: plan)
+                stats = torch.zeros(3, dtype=torch.int64, device=cuda)
+                got = run(stats=stats)
+                torch.cuda.synchronize()
+                _equal(got, want)
+                assert int(stats.sum()) == plan.grid * 4, (plan, stats)
+                if blind:  # view 3 is empty in every CTA
+                    assert stats[2] >= plan.grid
+                if px == 0:
+                    assert stats[0] == 0 and stats[1] > 0
+                else:
+                    assert stats[0] > 0
+
+
+def test_variance_backward_kernel_ragged_edges(cuda, monkeypatch):
+    """The variance's brick backward on a ragged window with a view that
+    sees nothing and a box cut to 24 pixels, so that bricks take both
+    paths: bitwise equal to the plain backward, repeats equal to the
+    first, and a non-finite cotangent entry makes the whole gradient NaN,
+    as in the plain version."""
+    dim, c, h, w = (10, 12, 9), 32, 15, 20
+    run, plain, ct = _variance_window_case(cuda, dim, blind=True, depth=0.8)
+    want = plain()
+    plan = bp.plan_backward_brick(dim, c, h, w, 4,
+                                  bp.backward_brick_choices(dim, 4, 4, bp.VARIANCE)[0],
+                                  4, box_px=24, mode=bp.VARIANCE)
+    assert any(d % s for d, s in zip(dim, plan.brick))
+    monkeypatch.setattr(bp, "plan_backward", lambda *_: plan)
+    stats = torch.zeros(3, dtype=torch.int64, device=cuda)
+    first = run(stats=stats)
     torch.cuda.synchronize()
-    assert bp.total_backward_launches() == before + 2
-    assert through_autograd.dtype == torch.bfloat16
-    assert (count >= 2).any() and (count[~valid] == 0).all()
-    _equal(got, want)
-    assert got.reshape(4, 2, h, w, c)[:, 1].abs().max() > 0
+    in_box, direct, empty = stats.tolist()
+    assert in_box > 0 and direct > 0 and empty >= plan.grid
+    _equal(first, want)
+    for _ in range(3):
+        assert torch.equal(run(), first)
+    ct[7, 5] = float("nan")
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    assert torch.isnan(got).all() and torch.isnan(want).all()
+
+
+def test_variance_window_gradient_through_autograd(cuda):
+    """torch.autograd through back_project_variance_window launches one
+    forward and one backward kernel and gives the plain backward's
+    gradient in the features' bf16."""
+    rng = np.random.default_rng(10)
+    dim, h, w, c = (12, 12, 12), 15, 20, 16
+    feats = torch.from_numpy(rng.standard_normal((4, 1, h, w, c))).to(
+        torch.bfloat16).to(cuda).requires_grad_(True)
+    origin = torch.tensor([[0.0013, 0.0027, 0.0031]]).to(cuda)
+    proj = _proj(4, h, w).to(cuda)
+    ct = torch.from_numpy(rng.standard_normal((math.prod(dim), c))).to(
+        torch.bfloat16).to(cuda)
+    before = (bp.total_launches(), bp.total_backward_launches())
+    var, count = bp.back_project_variance_window(dim, 1, origin, 0.05, feats, proj)
+    (got,) = torch.autograd.grad(var, feats, ct)
+    want = bp.variance_window_backward_plain(dim, 1, origin, 0.05, feats.detach(),
+                                             proj, count, ct)
+    torch.cuda.synchronize()
+    assert (bp.total_launches(), bp.total_backward_launches()) == (
+        before[0] + 1, before[1] + 1)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, want.to(torch.bfloat16).reshape(got.shape))
 
 
 def _window_backward_case(cuda, dim=(16, 16, 16), c=24, h=15, w=20, depth=1.2,
@@ -297,8 +425,8 @@ def _window_backward_case(cuda, dim=(16, 16, 16), c=24, h=15, w=20, depth=1.2,
     ct = torch.from_numpy(rng.standard_normal((count.numel(), c))).to(
         torch.bfloat16).to(cuda)
     run = lambda **kw: bp._launch_backward(
-        bp.WINDOW_MEAN, None, proj.reshape(4, 1, 16), origin, None, None, ct,
-        count, 4, h, w, dim, 1, voxel, **kw)
+        bp.WINDOW_MEAN, None, proj.reshape(4, 1, 16), origin, ct, count, 4,
+        h, w, dim, 1, voxel, **kw)
     want = bp.window_backward_plain(dim, 1, origin, voxel, proj,
                                     count.reshape(dim), ct.reshape(*dim, c), h, w)
     return run, want, dim, c, h, w
@@ -307,7 +435,9 @@ def _window_backward_case(cuda, dim=(16, 16, 16), c=24, h=15, w=20, depth=1.2,
 @pytest.mark.parametrize("border", [False, True])
 def test_backward_kernel_every_brick_and_split(cuda, monkeypatch, border):
     """Every brick and channel split (vectors per CTA) the window mean's
-    backward plan may take agrees with the plain backward, and so do a box
+    backward plan may take (bricks small enough to add into the box
+    without a carry and larger ones) agrees with the plain backward, and
+    so do a box
     of 0 pixels (every brick-view scatters straight into the gradient) and
     every view-tile plan (channels per tile x ranges); `border`: voxels
     exactly on the last pixel column and row of view 0 and one past
@@ -432,10 +562,8 @@ def test_backward_kernel_path_shapes(cuda, name):
     plan = bp.plan_backward(case.extent, case.c, case.h, case.w, 9, case.mode)
     if isinstance(plan, bp.TilePlan):  # stage 0: every visible pair once
         assert stats.tolist() == [case.visible, 0, 0]
-    elif plan.per_voxel:  # the variance keeps no tallies
-        assert int(stats.sum()) == 0
-    else:
-        assert stats[0] > 0
+    else:  # bricks, the variance's too: a tally per (CTA, view)
+        assert stats[0] > 0 and int(stats.sum()) == plan.grid * 9
 
 
 @pytest.mark.parametrize("name", ["occ_init_variance", "stage0_window",
@@ -471,7 +599,7 @@ def test_backward_kernel_non_finite_cotangent_is_nan(cuda, name):
     (case,) = [cs for cs in bench.cases(frag["proj_matrices"],
                                         frag["vol_origin_partial"])
                if cs.name == name]
-    ct = case.backward.args[6]  # the bf16 cotangent, shared with the plain
+    ct = case.backward.args[4]  # the bf16 cotangent, shared with the plain
     ct[5, 3] = float("inf")
     got, want = case.backward(), case.backward_plain()
     torch.cuda.synchronize()
