@@ -7,6 +7,8 @@
                                          # the export phase's model-free server
     python3 chip_smoke.py --quality-phase RESULTS
                                          # the quality phase's process
+    python3 chip_smoke.py --remat-phase RESULTS
+                                         # the train phase's remat process
 
 Phases (any failure exits non-zero before the result line):
   1. build csrc/back_project.cu (forward and backward kernels) for sm_90a
@@ -19,7 +21,7 @@ Phases (any failure exits non-zero before the result line):
      registers), and time it
      (eprecon_tpu_torch/tools/bench_back_project.py); the occupancy
      init's grid is also passed as the JAX signature's coordinate list
-     (the forward's runs of rows), checked the same way, untimed:
+     (runs of rows), a case of its own, checked and timed the same way:
      ms is the kernel's device time under torch.profiler with the L2
      flushed, call_ms the wrapper's time per call, beside the plain
      version, an F.grid_sample yardstick (library_ms) and the least time
@@ -37,12 +39,21 @@ Phases (any failure exits non-zero before the result line):
      plan takes view tiles (stage 0, whose bricks cannot fill the card) the
      visible (voxel, view) pairs the tiles took must equal the forward's
      view counts' sum; the occupancy init's variance takes bricks too
-     (over its grid as a window), tallied the same way;
+     (over its grid as a window), tallied the same way, and as a
+     coordinate list runs of rows with no box (every brick-view with a
+     visible row scattered straight into the gradient), printed beside
+     the window's; a list of two batch elements with invalid rows and a
+     view that sees nothing is held bitwise in both directions too;
      check that the card holds as many CTAs per SM as the plan assumes (a
      brick plan cuts shared memory for them; a tile plan's clusters must
      fit the card at once, and its visible-records pass is checked too),
      and time it the same way, every kernel of a call summed (library_ms:
      autograd of the F.grid_sample yardstick);
+  3a. the coordinate list's path (the JAX signature's occupancy-init
+     call, back_project_variance, through torch.autograd.grad) at the
+     occupancy grid, LIST_PATH_CALLS times with the counts set to 0 just
+     before: one forward and one backward launch of the list's kernels
+     per call and no other, each gradient bitwise the plain backward's;
   4. serve the main path: StreamingReconstructor at the default config
      (96^3 window at 4 cm, 9 views at 640x480, 80-query 6-layer decoder),
      random weights from a seed, 3 fragments of one scene then 1 of a
@@ -84,7 +95,16 @@ Phases (any failure exits non-zero before the result line):
      loss term finite and > 0; a non-zero gradient in each trained module
      group; parameters move on each update and not between; 4 forward and
      4 backward kernel launches per step; the maps finite and growing.
-     Prints step ms (step 0 and the median of steps 3-6) and peak GiB;
+     Prints step ms (step 0 and the median of steps 3-6) and peak GiB.
+     Then model.remat_mode (--remat-phase, a process of its own in
+     quality_run's deterministic mode): 2 micro-steps from the same
+     weights and fragments under each of none, light (the default) and
+     full; fails unless every gradient, loss, updated parameter, Adam
+     moment and running statistic equals none's bit for bit, each step
+     launched 4 forward (5 under full: the occupancy init's recompute
+     runs its variance kernel again) and 4 backward kernels, and full's
+     peak memory is below none's. Prints [remat]: each mode's step ms
+     and peak GiB;
   5a. the closed quality loop (the quality phase; tools/quality_run.py),
      in a process of its own (--quality-phase) in quality_run's
      deterministic mode (torch's deterministic algorithms in raise mode,
@@ -186,8 +206,9 @@ serving path, `session_launches` from the restored JAX-layout session,
 `export_launches` from the export phase's serving process,
 `train_launches` from the training phase, `cli_launches`
 from the CLI phase, `ddp_launches` summed over the ddp phase's ranks,
-`import_launches` from serving the imported checkpoint), and as the last
-line {"ok": true, "device": {...}}.
+`import_launches` from serving the imported checkpoint; the coordinate
+list's two entries take `launches` from phase 3a, the path that runs
+them), and as the last line {"ok": true, "device": {...}}.
 Full results also go to chip_smoke.json in the output directory beside
 the script.
 """
@@ -211,6 +232,9 @@ REPO = Path(__file__).resolve().parent
 TOL = 1e-2                  # kernel vs plain, relative to max(1, |plain|)
 REPEATS = 4                 # backward calls on the same inputs, against the first
 TRAIN_STEPS = 6
+LIST_PATH_CALLS = 3         # the coordinate list's path: forward + autograd calls
+REMAT_MODES = ("none", "light", "full")
+REMAT_STEPS = 2             # micro-steps per mode: a gradient, then an update
 
 
 def ptxas_lines(so: Path):
@@ -223,13 +247,14 @@ def ptxas_lines(so: Path):
         m = re.search(r"entry function '(\S+)'", line)
         if m:
             f = re.search(r"project_kernelILi(\d+)ELb([01])E", m.group(1))
-            k = re.search(r"backward_kernelILb([01])E", m.group(1))
+            k = re.search(r"backward_kernelILb([01])ELb([01])E", m.group(1))
             t = re.search(r"backward_tileILi(\d+)E", m.group(1))
             b = re.search(r"back_project_(backward_visible|backward_scale|"
                           r"backward_convert)", m.group(1))
             mode = lambda x: "variance" if x == "1" else "mean"
             name = (f"items={f.group(1)} {mode(f.group(2))}" if f
-                    else f"backward bricks {mode(k.group(1))}" if k
+                    else (f"backward {'rows' if k.group(2) == '1' else 'bricks'} "
+                          f"{mode(k.group(1))}") if k
                     else f"backward view tile cs={t.group(1)} mean" if t
                     else {"backward_visible": "backward visible records mean",
                           "backward_scale": "backward fixed-point scale",
@@ -252,7 +277,8 @@ def kernel_phase(case_list, v, card):
 
     def check(name, run, plain, extent, n, c, mode):
         """Kernel vs plain, brick-view tallies and CTAs per SM of one
-        launch: (max abs err, (seen, empty), plan, CTAs per SM)."""
+        launch (a window's bricks or a coordinate list's runs of rows):
+        (max abs err, (seen, empty), plan, CTAs per SM)."""
         stats = torch.zeros(2, dtype=torch.int64, device="cuda")
         (k_out, k_cnt), (p_out, p_cnt) = run(stats=stats), plain()
         torch.cuda.synchronize()
@@ -281,37 +307,18 @@ def kernel_phase(case_list, v, card):
         name, n, c = case.name, case.n, case.c
         err, (seen, empty), plan, ctas_per_sm = check(
             name, case.run, case.plain, case.extent, n, c, case.mode)
-        listed = {}
-        if case.list_run is not None:
-            # the same rows as the JAX signature's coordinate list: the
-            # forward's runs of rows (its backward has no kernel)
-            l_err, l_tally, l_plan, l_ctas = check(
-                f"{name} as a coordinate list", case.list_run, case.list_plain,
-                (n,), n, c, case.mode)
-            listed = dict(coordinate_list=dict(
-                max_abs_err=l_err, bitwise_equal=l_err == 0.0,
-                brick_views=dict(seen=l_tally[0], empty=l_tally[1]),
-                ctas_per_sm=l_ctas, plan_ctas_per_sm=l_plan.ctas_per_sm,
-                launch_parameters=dict(brick=list(l_plan.brick),
-                                       grid=l_plan.grid, threads=l_plan.threads,
-                                       smem_bytes=l_plan.smem_bytes)))
-            print(f"[kernel] {name} as a coordinate list: N={n} C={c} "
-                  f"err={l_err:.3g} CTAs/SM on the card={l_ctas} (plan "
-                  f"{l_plan.ctas_per_sm}) brick-views seen/empty="
-                  f"{l_tally[0]}/{l_tally[1]} | launched with brick="
-                  f"{l_plan.brick} grid={l_plan.grid} threads={l_plan.threads} "
-                  f"smem={l_plan.smem_bytes} B | {card}", flush=True)
         t = bench.time_case(case, v)
         res = dict(name=f"back_project/{name}", route="cuda",
                    source="eprecon_tpu_torch/csrc/back_project.cu",
                    replaces="tools_dev/pallas_gather_probe.py:56",
                    launches=0, max_abs_err=err, **t,
-                   key=[case.mode, n, c], bitwise_equal=err == 0.0,
+                   key=list(bp.launch_key(case.mode, n, c, case.rows)),
+                   bitwise_equal=err == 0.0,
                    ctas_per_sm=ctas_per_sm, plan_ctas_per_sm=plan.ctas_per_sm,
                    brick_views=dict(seen=seen, empty=empty),
                    launch_parameters=dict(brick=list(plan.brick), grid=plan.grid,
                                           threads=plan.threads,
-                                          smem_bytes=plan.smem_bytes), **listed)
+                                          smem_bytes=plan.smem_bytes))
         print(f"[kernel] {name}: N={n} C={c} err={err:.3g} ms={t['ms']:.4f} "
               f"(profiled windows {t['profiler_windows']}) "
               f"call_ms={t['call_ms']:.4f} plain_ms={t['plain_ms']:.4f} "
@@ -361,10 +368,14 @@ def backward_phase(case_list, v, card):
                 raise AssertionError(f"backward {case.name}: the view tiles took "
                                      f"{stats.tolist()} visible pairs, the forward "
                                      f"counted {case.visible}")
-        elif in_box + direct + empty != plan.grid * v or in_box == 0:
+        elif in_box + direct + empty != plan.grid * v:
             raise AssertionError(f"backward {case.name}: brick-view tallies "
                                  f"{stats.tolist()} for {plan.grid} CTAs x {v} "
-                                 f"views (the shared-memory path must run)")
+                                 "views")
+        elif (in_box == 0) != plan.rows or (plan.rows and direct == 0):
+            raise AssertionError(f"backward {case.name}: brick-view tallies "
+                                 f"{stats.tolist()} (a window's shared-memory "
+                                 "path must run; a coordinate list keeps no box)")
         ctas_per_sm = bp.occupancy(plan, case.mode)
         if ctas_per_sm != plan.ctas_per_sm:
             raise AssertionError(f"backward {case.name}: the card holds "
@@ -395,7 +406,8 @@ def backward_phase(case_list, v, card):
             name=f"back_project_backward/{case.name}", route="cuda",
             source="eprecon_tpu_torch/csrc/back_project.cu",
             replaces="eprecon_tpu/ops/back_project.py:24",
-            launches=0, max_abs_err=err, **t, key=[case.mode, case.n, case.c],
+            launches=0, max_abs_err=err, **t,
+            key=list(bp.launch_key(case.mode, case.n, case.c, case.rows)),
             bitwise_equal=True, rel_err=err / scale,
             repeat_max_abs_diff=repeat_diff, fixed_point_exponent=e,
             resolution=resolution, max_plain=scale,
@@ -428,7 +440,124 @@ def backward_phase(case_list, v, card):
               f"library_ms={t['library_ms']:.4f} bound_ms={t['bound_ms']:.4f} "
               f"({t['bound_by']}) CTAs/SM on the card={ctas_per_sm} (plan "
               f"{plan.ctas_per_sm}) {how} | {card}", flush=True)
+    by_name = {r["name"].split("/", 1)[1]: r for r in results}
+    win, rows = by_name.get("occ_init_variance"), by_name.get(bench.LIST_CASE)
+    if win and rows:
+        print("[backward] occ-init variance, coordinate list beside the window: "
+              + "; ".join(f"{k} {rows[k]:.4f} / {win[k]:.4f}" for k in
+                          ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms"))
+              + f" | {card}", flush=True)
     return results
+
+
+def list_checks(frag, card):
+    """The variance over a coordinate list of two batch elements at the
+    occupancy init's shapes (a 24^3 grid at 8 cm per batch element, batch
+    1's rows in reverse order so that a run spans the batch boundary;
+    20% of the rows invalid; view 8 facing away in both): forward kernel
+    vs plain bitwise (values and counts), the gradient through
+    torch.autograd.grad vs the plain backward bitwise, the f32 kernel
+    backward vs plain bitwise with REPEATS repeats, and its tallies (no
+    box; the blind view empty everywhere)."""
+    import numpy as np
+    import torch
+    from eprecon_tpu_torch.ops import back_project as bp
+    from eprecon_tpu_torch.ops.grid import dense_coords
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    v, h, w, c, dim = frag["proj_matrices"].shape[0], 60, 80, 32, (24, 24, 24)
+    xyz = dense_coords(dim, dev).reshape(-1, 3).int() * 2
+    coords = torch.cat([torch.cat([torch.full_like(xyz[:, :1], b),
+                                   xyz.flip(0) if b else xyz], 1) for b in (0, 1)])
+    n = coords.shape[0]
+    valid = torch.rand(n, device=dev, generator=gen) > 0.2
+    origin = torch.as_tensor(frag["vol_origin_partial"], device=dev)
+    origin = torch.stack([origin, origin + 0.03]).float()
+    proj = torch.as_tensor(frag["proj_matrices"][:, 1], device=dev)
+    proj = proj[:, None].repeat(1, 2, 1, 1).contiguous()
+    proj[8, :, 2] = -proj[8, :, 2]  # every voxel behind view 8's camera
+    feats = torch.randn(v, 2, h, w, c, device=dev, generator=gen).to(torch.bfloat16)
+    ct = torch.randn(n, c, device=dev, generator=gen).to(torch.bfloat16)
+    args = (coords, valid, origin, 0.08, feats, proj)
+    f = feats.clone().requires_grad_(True)
+    before = (bp.total_launches(), bp.total_backward_launches())
+    var, count = bp.back_project_variance(*args[:4], f, proj)
+    (got,) = torch.autograd.grad(var, f, ct)
+    want_var, want_count = bp.back_project_variance_plain(*args)
+    want = bp.variance_backward_plain(*args, want_count, ct)
+    torch.cuda.synchronize()
+    launched = (bp.total_launches() - before[0],
+                bp.total_backward_launches() - before[1])
+    run = lambda **kw: bp._launch_backward(
+        bp.VARIANCE, feats.reshape(v, 2 * h * w, c), proj.reshape(v, 2, 16),
+        origin, ct, count, v, h, w, None, voxel_size=0.08, coords=coords,
+        valid=valid.to(torch.uint8), **kw)
+    stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    first = run(stats=stats)
+    repeats = [run() for _ in range(REPEATS)]
+    torch.cuda.synchronize()
+    plan = bp.plan_backward((n,), c, h, w, v, bp.VARIANCE, 2)
+    in_box, direct, empty = stats.tolist()
+    ok = dict(
+        forward=torch.equal(var, want_var) and torch.equal(count, want_count),
+        autograd=torch.equal(got, want.to(torch.bfloat16).reshape(got.shape)),
+        backward=torch.equal(first, want),
+        repeats=all(torch.equal(r, first) for r in repeats),
+        launches=launched == (1, 1),
+        tallies=(in_box == 0 and direct > 0 and empty >= plan.grid
+                 and in_box + direct + empty == plan.grid * v),
+        geometry=bool((want_count[~valid] == 0).all()
+                      and (want_count[valid] >= 2).sum() > 0.05 * n
+                      and want[8].abs().max() == 0 and want.abs().max() > 0))
+    print(f"[list] two batch elements, {n} rows ({int((~valid).sum())} invalid), "
+          f"view 8 blind: {ok}; launches forward/backward {launched}; "
+          f"brick-views in-box/direct/empty={in_box}/{direct}/{empty} | launched "
+          f"with run={plan.brick[0]} cvec={plan.cvec} grid={plan.grid} "
+          f"threads={plan.threads} | {card}", flush=True)
+    if not all(ok.values()):
+        raise AssertionError(f"coordinate list, two batch elements: {ok}")
+    return dict(rows=n, invalid=int((~valid).sum()), checks=ok,
+                brick_views=dict(in_box=in_box, direct=direct, empty=empty),
+                launch_parameters=dict(run=plan.brick[0], cvec=plan.cvec,
+                                       grid=plan.grid, threads=plan.threads))
+
+
+def list_path_phase(case_list, card):
+    """The coordinate list's path: the JAX signature's occupancy-init call
+    (back_project_variance over the grid's rows, then torch.autograd.grad)
+    LIST_PATH_CALLS times, the launch counts set to 0 just before and read
+    just after; every gradient bitwise the plain backward's (in bf16).
+    Returns (results, forward counts, backward counts)."""
+    import torch
+    from eprecon_tpu_torch.ops import back_project as bp
+    from eprecon_tpu_torch.tools import bench_back_project as bench
+
+    (case,) = [cs for cs in case_list if cs.name == bench.LIST_CASE]
+    want = case.backward_plain().to(torch.bfloat16)
+    key = bp.launch_key(case.mode, case.n, case.c, True)
+    torch.cuda.synchronize()
+    bp.launch_counts.clear()
+    bp.backward_launch_counts.clear()
+    ms, equal = [], []
+    for _ in range(LIST_PATH_CALLS):
+        t0 = time.perf_counter()
+        got = case.autograd()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        equal.append(torch.equal(got.reshape(want.shape), want))
+    fwd, bwd = dict(bp.launch_counts), dict(bp.backward_launch_counts)
+    print(f"[list-path] back_project_variance + autograd over the occupancy "
+          f"grid's {case.n} rows x {LIST_PATH_CALLS}: launches forward {fwd} "
+          f"backward {bwd}; gradients bitwise the plain backward's: {equal}; "
+          f"ms per call {[round(x, 3) for x in ms]} | {card}", flush=True)
+    if fwd != {key: LIST_PATH_CALLS} or bwd != {key: LIST_PATH_CALLS}:
+        raise AssertionError(f"coordinate list path: launches {fwd} / {bwd}, "
+                             f"want {LIST_PATH_CALLS} of {key} each")
+    if not all(equal):
+        raise AssertionError("coordinate list path: a gradient differs from the "
+                             "plain backward")
+    return dict(calls=LIST_PATH_CALLS, ms=ms, bitwise_equal=equal), fwd, bwd
 
 
 def main_path_phase(card):
@@ -1003,33 +1132,54 @@ def reference_phase(card):
     return res
 
 
-def train_phase(card):
-    """Six training micro-steps at full width over one scene stream."""
+def train_setup(steps: int):
+    """The train phase's config (the default, cut to accumulation 2 and
+    threshold-free selection), its first `steps` fragments of one scene
+    stream, and a function giving a fragment's step inputs on the card."""
     import numpy as np
     import torch
     from eprecon_tpu_torch.config import default_config
     from eprecon_tpu_torch.data.synthetic import make_fragment, make_scene
-    from eprecon_tpu_torch.models.eprecon import EPRecon, LOSS_ORDER
-    from eprecon_tpu_torch.ops import back_project as bp
     from eprecon_tpu_torch.ops import grid
-    from eprecon_tpu_torch.train.state import Trainer, fragment_tensors
+    from eprecon_tpu_torch.train.state import fragment_tensors
 
     cfg = default_config()
     m = dataclasses.replace(cfg.model, thresholds=(-100.0,) * 3,
                             occ_init_threshold=0.0)
     cfg = dataclasses.replace(cfg, model=m, train=dataclasses.replace(
         cfg.train, accumulation_steps=2))
-    reduced = dict(accumulation_steps=2, thresholds=m.thresholds,
-                   occ_init_threshold=m.occ_init_threshold)
-    print(f"[train] reduced from the default config: {reduced} | {card}",
-          flush=True)
     scene = make_scene(0)
     frags = [make_fragment(n_vox=m.n_vox, voxel_size=m.voxel_size, scene=scene,
-                           start_angle=0.2 * i) for i in range(TRAIN_STEPS)]
+                           start_angle=0.2 * i) for i in range(steps)]
     g_origin = grid.scene_global_origin(m.global_extent, m.n_vox, m.n_scales,
                                         m.voxel_size,
                                         frags[0]["vol_origin_partial"] - 0.5,
                                         m.origin_margin)
+
+    def inputs(d):
+        rel = np.stack([np.round((d["vol_origin_partial"] - g_origin)
+                                 / (m.voxel_size * 2 ** (m.n_scales - lv)))
+                        for lv in range(m.n_layer)]).astype(np.int64)
+        return fragment_tensors(d, rel, torch.device("cuda"))
+
+    return cfg, frags, inputs
+
+
+def train_phase(card):
+    """Six training micro-steps at full width over one scene stream, then
+    the remat modes' steps (remat_phase)."""
+    import numpy as np
+    import torch
+    from eprecon_tpu_torch.models.eprecon import EPRecon, LOSS_ORDER
+    from eprecon_tpu_torch.ops import back_project as bp
+    from eprecon_tpu_torch.train.state import Trainer
+
+    cfg, frags, inputs = train_setup(TRAIN_STEPS)
+    m = cfg.model
+    reduced = dict(accumulation_steps=2, thresholds=m.thresholds,
+                   occ_init_threshold=m.occ_init_threshold)
+    print(f"[train] reduced from the default config: {reduced}; remat_mode "
+          f"{m.remat_mode} | {card}", flush=True)
     trainer = Trainer(cfg, EPRecon(m, seed=cfg.seed))  # device: CUDA
     groups = (["backbone2d.", "backbone_occ_pano.", "neucon_net.panoptic."]
               + [f"neucon_net.{g}_{i}." for g in ("sp_conv", "gru_fusion")
@@ -1041,10 +1191,7 @@ def train_phase(card):
     bp.backward_launch_counts.clear()
     step_ms, losses, map_sizes, grad_norms = [], [], [], {}
     for i, d in enumerate(frags):
-        rel = np.stack([np.round((d["vol_origin_partial"] - g_origin)
-                                 / (m.voxel_size * 2 ** (m.n_scales - lv)))
-                        for lv in range(m.n_layer)]).astype(np.int64)
-        imgs, frag, targets = fragment_tensors(d, rel, torch.device("cuda"))
+        imgs, frag, targets = inputs(d)
         before = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
         fwd, bwd = bp.total_launches(), bp.total_backward_launches()
         torch.cuda.synchronize()
@@ -1090,9 +1237,129 @@ def train_phase(card):
           f"steps 3-{TRAIN_STEPS})={steady:.1f}; peak memory {peak:.2f} GiB; "
           f"gradient norms at step 0 { {k: round(x, 5) for k, x in grad_norms.items()} }"
           f" | {card}", flush=True)
+    launches = dict(bp.launch_counts), dict(bp.backward_launch_counts)
+    del trainer, rec
+    torch.cuda.empty_cache()
     return dict(step_ms=step_ms, steady_step_ms=steady, peak_gib=peak,
-                losses=losses, map_sizes=map_sizes, grad_norms=grad_norms,
-                reduced=reduced), dict(bp.launch_counts), dict(bp.backward_launch_counts)
+                remat_mode=m.remat_mode, losses=losses, map_sizes=map_sizes,
+                grad_norms=grad_norms, reduced=reduced,
+                remat=remat_phase(card)), *launches
+
+
+def remat_phase(card):
+    """model.remat_mode on the card, in a process of its own in
+    quality_run's deterministic mode (`--remat-phase`, remat_checks).
+    Returns its results."""
+    out = Path(tempfile.mkdtemp(prefix="eprecon_remat_"))
+    t0 = time.perf_counter()
+    try:
+        rc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"),
+                             "--remat-phase", str(out / "remat.json")],
+                            cwd=REPO).returncode
+        if rc != 0:
+            raise AssertionError(f"remat: the phase's process exited {rc}")
+        res = json.loads((out / "remat.json").read_text())
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    res["process_wall_s"] = time.perf_counter() - t0
+    print(f"[remat] process wall {res['process_wall_s']:.1f} s | {card}",
+          flush=True)
+    return res
+
+
+def remat_checks(out: Path) -> int:
+    """The remat phase's process: deterministic mode first, a warm-up
+    step, then REMAT_STEPS micro-steps (the train phase's config and first
+    fragments; a gradient, then an update) from the same seeded weights
+    under each of REMAT_MODES; each mode's gradients (step 0), losses,
+    parameters and Adam moments after the update and running statistics
+    against "none"'s bit for bit, its launches per step, step ms and peak
+    memory. Writes the results to `out`."""
+    from eprecon_tpu_torch.tools import quality_run as qr
+
+    qr.deterministic_mode()
+    import torch
+    from eprecon_tpu_torch.models.eprecon import EPRecon, remat_boundaries
+    from eprecon_tpu_torch.ops import back_project as bp
+    from eprecon_tpu_torch.tools.bench_back_project import card_line
+    from eprecon_tpu_torch.train.state import Trainer
+
+    card = card_line()
+    cfg, frags, inputs = train_setup(REMAT_STEPS)
+    host = lambda t: t.detach().to("cpu", copy=True)
+    # one step first, unrecorded: a process's first step loads the
+    # libraries' kernels (19.4 s on the card), which no mode should carry
+    warm = Trainer(cfg, EPRecon(cfg.model, seed=cfg.seed))
+    warm.step(*inputs(frags[0]), warm.recurrent_state())
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    runs, bad = {}, []
+    for mode in REMAT_MODES:
+        m = dataclasses.replace(cfg.model, remat_mode=mode)
+        trainer = Trainer(dataclasses.replace(cfg, model=m),
+                          EPRecon(m, seed=cfg.seed))
+        rec = trainer.recurrent_state()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        run = dict(step_ms=[], launches=[], losses=[])
+        for i, d in enumerate(frags):
+            imgs, frag, targets = inputs(d)
+            before = (bp.total_launches(), bp.total_backward_launches())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rec, metrics = trainer.step(imgs, frag, targets, rec)
+            torch.cuda.synchronize()
+            run["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            run["launches"].append((bp.total_launches() - before[0],
+                                    bp.total_backward_launches() - before[1]))
+            run["losses"].append({k: host(x) for k, x in metrics.items()})
+            if i == 0:  # the accumulator holds step 0's gradients
+                run["grads"] = {k: host(a) for k, a in trainer.optimizer.acc.items()}
+        run["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        run["state"] = {
+            **{f"param {k}": host(p) for k, p in trainer.model.named_parameters()},
+            **{f"buffer {k}": host(b) for k, b in trainer.model.named_buffers()},
+            **{f"mu {k}": host(x) for k, x in trainer.optimizer.mu.items()},
+            **{f"nu {k}": host(x) for k, x in trainer.optimizer.nu.items()}}
+        del trainer, rec, metrics
+        torch.cuda.empty_cache()
+        want = (5 if "initialization" in remat_boundaries(mode) else 4, 4)
+        if run["launches"] != [want] * REMAT_STEPS:
+            bad.append(f"{mode}: launches per step {run['launches']}, want {want}")
+        runs[mode] = run
+    plain = runs["none"]
+    results = {}
+    for mode, run in runs.items():
+        differ = [f"gradient {k}" for k, a in run["grads"].items()
+                  if not torch.equal(a, plain["grads"][k])]
+        differ += [f"step {i} {k}" for i, ls in enumerate(run["losses"])
+                   for k, x in ls.items() if not torch.equal(x, plain["losses"][i][k])]
+        differ += [k for k, x in run["state"].items()
+                   if not torch.equal(x, plain["state"][k])]
+        if differ:
+            bad.append(f"{mode}: differs from none in {len(differ)} tensors, "
+                       f"first {differ[:3]}")
+        results[mode] = dict(step_ms=run["step_ms"], peak_gib=run["peak_gib"],
+                             launches=run["launches"],
+                             boundaries=list(remat_boundaries(mode)),
+                             bitwise_equal_to_none=not differ,
+                             total_loss=[float(x["total_loss"]) for x in run["losses"]])
+        print(f"[remat] {mode}: recomputes {list(remat_boundaries(mode)) or 'nothing'}; "
+              f"step ms {[round(x, 1) for x in run['step_ms']]} (step 1 updates); "
+              f"peak {run['peak_gib']:.2f} GiB; launches per step {run['launches']}; "
+              f"gradients, losses, updated parameters, Adam moments and running "
+              f"statistics bitwise equal to none's: {not differ} | {card}",
+              flush=True)
+    if not runs["full"]["peak_gib"] < plain["peak_gib"]:
+        bad.append(f"full's peak {runs['full']['peak_gib']:.3f} GiB is not below "
+                   f"none's {plain['peak_gib']:.3f}")
+    out.write_text(json.dumps(dict(modes=results, steps=REMAT_STEPS,
+                                   deterministic=True, failures=bad)))
+    if bad:
+        print("[remat] FAILED: " + "; ".join(bad), flush=True)
+        return 1
+    return 0
 
 
 QUALITY_SEEDS = (0, 1, 2)
@@ -2624,6 +2891,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--quality-phase"]:  # the quality phase's process
         sys.path.insert(0, str(REPO))
         return quality_checks(Path(sys.argv[2]))
+    if sys.argv[1:2] == ["--remat-phase"]:  # the train phase's remat process
+        sys.path.insert(0, str(REPO))
+        return remat_checks(Path(sys.argv[2]))
     if sys.argv[1:2] == ["--ddp-rank"]:  # a rank of the ddp phase
         return ddp_rank(Path(sys.argv[2]), sys.argv[3:])
     if sys.argv[1:] == ["--ddp-phase"]:
@@ -2651,7 +2921,16 @@ def main() -> int:
     case_list = bench.cases(frag["proj_matrices"], frag["vol_origin_partial"])
     kern = kernel_phase(case_list, v, card)
     kern_bwd = backward_phase(case_list, v, card)
+    list_res = list_checks(frag, card)
+    list_res["path"], list_fwd, list_bwd = list_path_phase(case_list, card)
     del case_list
+    # the coordinate list's kernels, whose path is phase 3a's
+    listed = [k for k in kern + kern_bwd if k["key"][-1] == "rows"]
+    for k in listed:
+        counts = list_fwd if k["name"].startswith("back_project/") else list_bwd
+        k["launches"] = int(counts.get(tuple(k["key"]), 0))
+    kern = [k for k in kern if k not in listed]
+    kern_bwd = [k for k in kern_bwd if k not in listed]
     main_res, launches, served = main_path_phase(card)
     session_res, session_fwd = jax_session_phase(card, served)
     t0 = time.perf_counter()
@@ -2699,20 +2978,23 @@ def main() -> int:
     for ks, counts in ((kern, ddp_fwd), (kern_bwd, ddp_bwd)):
         for k in ks:
             k["ddp_launches"] = int(counts.get(tuple(k["key"]), 0))
+    for k in listed:
+        k.pop("key")
     for k in kern + kern_bwd:
         k.pop("key")
         if k["cli_launches"] == 0:
             raise AssertionError(f"{k['name']}: not launched by the CLI")
         if k["ddp_launches"] == 0:
             raise AssertionError(f"{k['name']}: not launched by the ddp ranks")
-    kern = kern + kern_bwd
+    kern = kern + kern_bwd + listed
     ref = reference_phase(card)
     ref["train"] = train_reference_phase(card)
 
     out_dir = REPO / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
-        card=card, build_s=build_s, ptxas=ptxas, kernels=kern, main_path=main_res,
+        card=card, build_s=build_s, ptxas=ptxas, kernels=kern,
+        coordinate_list=list_res, main_path=main_res,
         jax_session=session_res, export=export_res, spvcnn=spvcnn_res, train=train_res, quality=quality_res, cli=cli_res, ddp=ddp_res, import_phase=import_res,
         reference=ref),
         indent=1))

@@ -4,14 +4,14 @@ Own copy of the dataclasses in `eprecon_tpu/config.py` (reference:
 config/default.py, config/train.yaml, config/test.yaml). The JAX package's
 keys that nothing here reads are not fields (`JAX_ONLY_KEYS`): a YAML file
 or override that sets one is accepted and ignored, so every config the JAX
-package takes loads here. They are `remat_mode` (a TPU memory setting: the
-port's peak of 26.92 GiB on an 80 GB card has not called for recompute),
-`bp_backward` (a TPU choice between two equal adjoints: the port has one
-backward kernel), the static capacities of the JAX sparse engine
-(`stage_capacity`, `point_window`, `global_capacity`, `key_window`) and
-keys the JAX package declares but never reads (`model.fusion.*`,
-`model.panoptic.stuff_ids`, `train.only_occ`, `train.fuse_temporal`,
-`train.bf16`). A key that neither config has still raises KeyError.
+package takes loads here. They are `bp_backward` (a TPU choice between
+two equal adjoints: the port has one backward kernel), the static
+capacities of the JAX sparse engine (`stage_capacity`, `point_window`,
+`global_capacity`, `key_window`) and keys the JAX package declares but
+never reads (`model.fusion.*`, `model.panoptic.stuff_ids`,
+`train.only_occ`, `train.fuse_temporal`, `train.bf16`). A key that
+neither config has still raises KeyError. `model.remat_mode` is a field,
+read as the JAX package reads it (models/eprecon.py).
 `model.sparsereg_dropout` is a field, and only False builds a model (see
 models/eprecon.EPReconCore).
 
@@ -107,6 +107,13 @@ class ModelConfig:
     # the reference's per-stage voxel sample caps (config/train.yaml)
     train_num_sample: Tuple[int, int, int] = (15000, 60000, 120000)
     test_num_sample: Tuple[int, int, int] = (15000, 60000, 120000)
+    # what the training backward recomputes instead of keeping (read as the
+    # JAX package reads it; models/layers.remat): "full" the two backbones,
+    # the occupancy init, each stage's U-Net, the GRU convs and the
+    # decoder; "none" nothing; any other value, "light" included, the two
+    # backbones. Only where autograd records: inference and export hold no
+    # recompute. Results are the same in every mode, memory and time not.
+    remat_mode: str = "light"
 
     @property
     def n_scales(self) -> int:
@@ -176,7 +183,7 @@ def default_config() -> Config:
 # keys of the JAX package's config that have no meaning here (see the
 # module docstring): accepted from a YAML file or override, and ignored
 JAX_ONLY_KEYS = frozenset({
-    "model.remat_mode", "model.bp_backward",
+    "model.bp_backward",
     "model.stage_capacity", "model.point_window", "model.global_capacity",
     "model.key_window",
     "model.fusion.fusion_on", "model.fusion.hidden_dim",

@@ -10,7 +10,9 @@ panoptic transfer and mask-feature LayerNorm bf16. BatchNorm uses batch
 statistics at inference (the reference's eval semantics). With `targets`
 the forward also returns the losses of a training step: occupancy init,
 tsdf/occ per stage against the GT fused into per-level target volumes,
-and the panoptic set criterion.
+and the panoptic set criterion. Where autograd records, `cfg.remat_mode`
+picks what the backward recomputes, at the JAX package's boundaries
+(`remat_boundaries`, models/layers.remat).
 
 Channel plan (alpha=1):
   ch_init     = [80, 40, 24]     back-projected image feats per stage
@@ -38,7 +40,8 @@ from eprecon_tpu_torch.models.gru_fusion import (DenseGlobalLevel,
                                                  DenseGRUFusion,
                                                  DenseTargetLevel,
                                                  fuse_target_window)
-from eprecon_tpu_torch.models.layers import LayerNorm, init_module, mask3
+from eprecon_tpu_torch.models.layers import (LayerNorm, init_module, mask3,
+                                             remat)
 from eprecon_tpu_torch.models.occupancy_init import OccupancyInitialization
 from eprecon_tpu_torch.models.panoptic.criterion import (build_targets,
                                                          set_criterion)
@@ -59,6 +62,21 @@ class FragmentTargets(NamedTuple):
     occ: Tuple[torch.Tensor, ...]       # bool, same shapes
     semantic: Optional[torch.Tensor]    # [96^3] nyu40 ids (finest)
     instance: Optional[torch.Tensor]    # [96^3] instance ids (finest)
+
+
+REMAT_3D = ("initialization", "sp_conv", "gru_conv", "panoptic")
+
+
+def remat_boundaries(mode: str) -> Tuple[str, ...]:
+    """The modules the training backward recomputes under `mode`, as the
+    JAX package reads model.remat_mode (eprecon.py:206,510): "none"
+    nothing, "full" the backbones and every 3-D module (the occupancy
+    init, each stage's U-Net, the GRU fusions' two ConvGRUs but not their
+    global-map slice and writeback, the decoder), any other value the
+    backbones."""
+    if mode == "none":
+        return ()
+    return ("backbones", *REMAT_3D) if mode == "full" else ("backbones",)
 
 
 def channel_plan(cfg: ModelConfig):
@@ -150,6 +168,7 @@ class EPReconCore(nn.Module):
                 "the JAX package passes, so it fails at its first forward; "
                 "the port has no dropout for it to match")
         self.cfg = cfg
+        self.remat = remat_boundaries(cfg.remat_mode)
         ura = use_running_average
         ch_init, channels, ch_in = channel_plan(cfg)
         gru_ch = gru_channel_plan(cfg)
@@ -161,7 +180,8 @@ class EPReconCore(nn.Module):
             setattr(self, f"sp_conv_{i}",
                     DenseUNet(ch_in[i] + 3, 1.0 / 2 ** i, ura))
             setattr(self, f"gru_fusion_{i}",
-                    DenseGRUFusion(channels[i], ch_init[i]))
+                    DenseGRUFusion(channels[i], ch_init[i],
+                                   remat="gru_conv" in self.remat))
             setattr(self, f"tsdf_pred_{i}", Linear4xTrans(channels[i], 1))
             setattr(self, f"occ_pred_{i}", Linear4xTrans(channels[i], 1))
         for p in range(3):
@@ -199,10 +219,11 @@ class EPReconCore(nn.Module):
         init_interval = 2 ** (n_scales - cfg.init_stage)
         init_scale = n_scales - cfg.init_stage
         init_shape = tuple(v // init_interval for v in cfg.n_vox)
-        occ_logits, init_mask, _ = self.initialization(
-            f2d, origin_b, cfg.voxel_size,
+        occ_logits, init_mask, _ = remat(
+            self.initialization, f2d, origin_b, cfg.voxel_size,
             frag.proj_matrices[:, None, init_scale], init_shape,
-            init_interval, cfg.min_view_number)
+            init_interval, cfg.min_view_number,
+            enabled="initialization" in self.remat)
         occ_logits, init_mask = occ_logits[0], init_mask[0]
         frag_ok = init_mask.sum() >= cfg.min_init_voxels
         if debug_outputs:
@@ -252,8 +273,9 @@ class EPReconCore(nn.Module):
             ac = aligned_coord_features(dim, interval, cfg.voxel_size,
                                         frag.vol_origin_partial,
                                         frag.world_to_aligned_camera)
-            feat3d = getattr(self, f"sp_conv_{i}")(
-                torch.cat([feat, ac.to(BF16)], dim=-1), stage_mask)
+            feat3d = remat(getattr(self, f"sp_conv_{i}"),
+                           torch.cat([feat, ac.to(BF16)], dim=-1), stage_mask,
+                           enabled="sp_conv" in self.remat)
             feat_all = torch.cat([feat3d.to(BF16), volume], dim=-1)
 
             fused, union, gmap = getattr(self, f"gru_fusion_{i}")(
@@ -361,8 +383,9 @@ class EPReconCore(nn.Module):
         mask_idx = [nearest_fine_in_cell(fine_rows, lvl_coords[0], 4),
                     nearest_fine_in_cell(fine_rows, lvl_coords[1], 2),
                     torch.arange(k_fine, device=fine_mask.device)]
-        dec_out = self.panoptic(lvl_feats, lvl_coords, lvl_valid, mask_feats,
-                                tuple(cfg.n_vox), mask_idx)
+        dec_out = remat(self.panoptic, lvl_feats, lvl_coords, lvl_valid,
+                        mask_feats, tuple(cfg.n_vox), mask_idx,
+                        enabled="panoptic" in self.remat)
         outputs["pred_logits"] = dec_out.pred_logits[-1]
         outputs["pred_masks"] = dec_out.pred_masks[-1]
         outputs["panoptic_coords"] = fine_sv.coords
@@ -424,8 +447,9 @@ class EPRecon(nn.Module):
         losses, new_state); with `targets`, losses holds the weighted
         "total_loss" beside its terms."""
         x = self.normalize(imgs)
-        feats2d = self.backbone2d(x)
-        feats_op = self.backbone_occ_pano(x)
+        recompute = "backbones" in remat_boundaries(self.cfg.remat_mode)
+        feats2d = remat(self.backbone2d, x, enabled=recompute)
+        feats_op = remat(self.backbone_occ_pano, x, enabled=recompute)
         outputs, losses, new_state = self.neucon_net(
             feats2d, feats_op, frag, state, targets, only_train_init,
             debug_outputs)

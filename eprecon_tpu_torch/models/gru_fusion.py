@@ -21,6 +21,7 @@ import torch.nn as nn
 from eprecon_tpu_torch.fragment_io import (DenseGlobalLevel,  # noqa: F401
                                           DenseTargetLevel,
                                           PanopticGlobalDense)
+from eprecon_tpu_torch.models.layers import remat
 from eprecon_tpu_torch.models.unet_dense import DenseConvGRU
 
 MAX_GLOBAL_INSTANCES = 1024  # id table bound for IoU matching
@@ -46,11 +47,15 @@ def window_index(vol: torch.Tensor, rel_origin,
 
 class DenseGRUFusion(nn.Module):
     """Feature-mode fusion at one level on dense windows
-    (reference gru_fusion.py:259-394, FUSION.FULL, batch=1)."""
+    (reference gru_fusion.py:259-394, FUSION.FULL, batch=1). With `remat`
+    (the JAX module's default) the training backward recomputes the two
+    ConvGRUs, and only them: the global map's slice and writeback stay
+    outside the recompute, as in the JAX module."""
 
-    def __init__(self, ch_voxel: int, ch_img: int):
+    def __init__(self, ch_voxel: int, ch_img: int, remat: bool = True):
         super().__init__()
         self.ch_voxel = ch_voxel
+        self.remat = remat
         self.gru_voxel = DenseConvGRU(ch_voxel, ch_voxel)
         self.gru_img = DenseConvGRU(ch_img, ch_img)
 
@@ -65,8 +70,10 @@ class DenseGRUFusion(nn.Module):
         h = torch.where(g_mask[..., None], g_feats, 0)
         x = torch.where(cur_mask[..., None], cur_feats, 0)
         cv = self.ch_voxel
-        fv = self.gru_voxel(h[..., :cv], x[..., :cv], union)
-        fi = self.gru_img(h[..., cv:], x[..., cv:], union)
+        fv = remat(self.gru_voxel, h[..., :cv], x[..., :cv], union,
+                   enabled=self.remat)
+        fi = remat(self.gru_img, h[..., cv:], x[..., cv:], union,
+                   enabled=self.remat)
         fused = torch.where(union[..., None], torch.cat([fv, fi], dim=-1), 0)
         # truncated BPTT, as the reference detaches its global volumes
         # between fragments: the map takes no gradient and holds no graph

@@ -17,12 +17,15 @@ the permutes around a convolution are views, not copies.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Sequence
+import threading
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 Dtype = Optional[torch.dtype]
 
@@ -198,10 +201,52 @@ class BatchNorm(nn.Module):
 def update_running_stats(norm: nn.Module, mean: torch.Tensor,
                          var: torch.Tensor):
     """flax's rule: ra = m * ra + (1 - m) * batch, m = norm.momentum, with
-    the biased batch variance the layer normalised with."""
+    the biased batch variance the layer normalised with. Inside a recompute
+    (`remat`) nothing changes: the statistics move once per forward, as
+    the JAX step's `batch_stats` do."""
+    if getattr(_recompute, "depth", 0):
+        return
     m = norm.momentum
     norm.running_mean.copy_(m * norm.running_mean + (1 - m) * mean)
     norm.running_var.copy_(m * norm.running_var + (1 - m) * var)
+
+
+# the depth of the recomputes (`remat`) running in this thread; autograd
+# may run a backward, and with it a recompute, in a thread of its own
+_recompute = threading.local()
+
+
+@contextlib.contextmanager
+def _recomputing():
+    depth = getattr(_recompute, "depth", 0)
+    _recompute.depth = depth + 1
+    try:
+        yield
+    finally:
+        _recompute.depth = depth
+
+
+def remat(fn: Callable, *args, enabled: bool = True):
+    """fn(*args), its activations recomputed in the backward instead of
+    kept (the counterpart of flax's nn.remat; torch.utils.checkpoint,
+    non-reentrant), where `enabled` and autograd records; else (under
+    no_grad: inference, export) a plain call. The recompute runs fn again
+    on the same inputs and moves no running statistics
+    (`update_running_stats`), so gradients, updates and statistics are
+    those of the plain call; it may stop once it has every tensor the
+    backward needs."""
+    if not (enabled and torch.is_grad_enabled()):
+        return fn(*args)
+    calls = []
+
+    def run(*a):
+        if calls:
+            with _recomputing():
+                return fn(*a)
+        calls.append(1)
+        return fn(*a)
+
+    return checkpoint(run, *args, use_reentrant=False)
 
 
 def init_module(module: nn.Module, generator: torch.Generator) -> nn.Module:

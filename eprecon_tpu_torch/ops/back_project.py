@@ -23,9 +23,9 @@ imported) whose backward ops give the
 features' gradient (the counterpart of the JAX package's gather
 adjoints), so a tracer records them and an exported program runs them. A
 tensor on the CPU takes the plain versions; a CUDA tensor launches the
-kernels or raises: `::variance`'s backward has no kernel (a coordinate
-list's rows need not form bricks) and raises on the card, where the
-model calls `::variance_window`. The plain forward does the kernel's arithmetic in the
+kernels or raises. Over a coordinate list (`::variance`, any batch
+elements and valid rows) both directions take runs of rows; the model
+calls `::variance_window`, whose rows form 3-D bricks. The plain forward does the kernel's arithmetic in the
 kernel's order (f32 sums over bf16 tables, f32 projection without fused
 multiply-adds), so on the card the two agree bit for bit. The backwards
 sum in 64-bit fixed point (`fixed_point_exponent`): each term w_q * d is
@@ -383,11 +383,13 @@ REGS_PER_SM = 65536               # in 4 sub-partitions, each holding whole warp
 # allocation unit. The forward by (mode, items): its launch bounds (256
 # threads x 3 CTAs) cap them at 80. The brick backward by mode, one item
 # per thread: 256 x 4 caps the window mean's at 64, 256 x 3 the
-# variance's at 80. The window mean's view-tile backward by channels per
-# tile: 1024 x 1 caps it at 64; its visible-records pass.
+# variance's at 80. The coordinate list's backward (the variance's runs
+# of rows), 256 x 3 too. The window mean's view-tile backward by channels
+# per tile: 1024 x 1 caps it at 64; its visible-records pass.
 REGS_PER_THREAD = {(WINDOW_MEAN, 1): 64, (WINDOW_MEAN, 2): 72,
                    (WINDOW_MEAN, 3): 80, (VARIANCE, 1): 64, (VARIANCE, 2): 80}
 BWD_REGS_PER_THREAD = {WINDOW_MEAN: 64, VARIANCE: 80}
+LIST_BWD_REGS_PER_THREAD = 80
 TILE_REGS_PER_THREAD = {2: 64, 4: 64, 8: 64, 16: 64}
 VISIBLE_REGS_PER_THREAD = 32
 SMEM_MAX = 232448                 # the most one CTA can opt in to (227 KB)
@@ -424,10 +426,12 @@ class LaunchPlan:
 
 @dataclasses.dataclass(frozen=True)
 class BackwardPlan(LaunchPlan):
-    """A brick backward launch over a dense window: one CTA per (brick,
-    channel split), one (voxel, vector) item per thread (`items` is 1)."""
+    """A brick backward launch over a dense window, or over a coordinate
+    list's runs of rows (`rows`): one CTA per (brick, channel split), one
+    (voxel, vector) item per thread (`items` is 1)."""
     cvec: int = 1                # 8-channel vectors per CTA (a divisor of C/8)
     box_px: int = 0              # pixels of the largest box summed in shared memory
+    rows: bool = False           # a coordinate list: runs of rows, no box
 
 
 @dataclasses.dataclass(frozen=True)
@@ -468,14 +472,14 @@ def smem_regions(v: int, b: int, bvox: int):
                 part=(MAX_THREADS // 32) * 8 * 4, views=(v + 1) * 4)
 
 
-def backward_regions(v: int, bvox: int, cvec: int, box_px: int):
-    """Bytes of each shared-memory region of one brick backward CTA (one
-    batch element, a record slot per view: corner pixel and the fractions
-    (du, dv)), in the order of `BwdLayout` in csrc/back_project.cu: the
-    last is the box, box_px pixels x 8 * cvec channels of int64 as two
-    planes of 32-bit words, each pixel padded by a word (an odd stride
-    spreads a warp's pixels over the banks)."""
-    return dict(proj=v * 16 * 4, world=bvox * 16, row=bvox * 4,
+def backward_regions(v: int, bvox: int, cvec: int, box_px: int, b: int = 1):
+    """Bytes of each shared-memory region of one brick backward CTA (the
+    projections of `b` batch elements, a record slot per view: corner
+    pixel and the fractions (du, dv)), in the order of `BwdLayout` in
+    csrc/back_project.cu: the last is the box, box_px pixels x 8 * cvec
+    channels of int64 as two planes of 32-bit words, each pixel padded by
+    a word (an odd stride spreads a warp's pixels over the banks)."""
+    return dict(proj=v * b * 16 * 4, world=bvox * 16, row=bvox * 4,
                 w=v * bvox * 8, uv=v * bvox * 4,
                 part=(MAX_THREADS // 32) * 8 * 4, box=v * 4 * 4,
                 views=(v + 1) * 4, acc=box_px * (cvec * 8 + 1) * 8)
@@ -575,26 +579,29 @@ def plan_launch(extent: Tuple[int, ...], c: int, v: int, b: int = 1,
     return plan_brick(extent, c, v, b, brick, mode)
 
 
-def _backward_regs(mode: int) -> Callable[[int], int]:
-    return lambda items: BWD_REGS_PER_THREAD[mode]
+def _backward_regs(mode: int, rows: bool = False) -> Callable[[int], int]:
+    regs = LIST_BWD_REGS_PER_THREAD if rows else BWD_REGS_PER_THREAD[mode]
+    return lambda items: regs
 
 
-def backward_brick_choices(extent: Tuple[int, int, int], cvec: int, v: int,
-                           mode: int = WINDOW_MEAN
+def backward_brick_choices(extent: Tuple[int, ...], cvec: int, v: int,
+                           mode: int = WINDOW_MEAN, b: int = 1
                            ) -> List[Tuple[int, int, int]]:
     """The bricks a brick backward whose CTAs own `cvec` vectors may take,
     largest first: as `brick_choices`, at one item per thread, but only
     those whose records for every one of `v` views and a box of BOX_MIN_PX
-    pixels fit one CTA's shared memory."""
+    pixels (a coordinate list's runs of rows over `b` batch elements: no
+    box) fit one CTA's shared memory."""
+    box = 0 if len(extent) == 1 else BOX_MIN_PX
     return [br for br in _choices(extent, cvec, 1)
-            if _layout(backward_regions(v, math.prod(br), cvec,
-                                        BOX_MIN_PX))[-1] <= SMEM_MAX]
+            if _layout(backward_regions(v, math.prod(br), cvec, box,
+                                        b))[-1] <= SMEM_MAX]
 
 
-def plan_backward_brick(extent: Tuple[int, int, int], c: int, h: int, w: int,
+def plan_backward_brick(extent: Tuple[int, ...], c: int, h: int, w: int,
                         v: int, brick: Tuple[int, int, int], cvec: int,
                         box_px: Optional[int] = None,
-                        mode: int = WINDOW_MEAN) -> BackwardPlan:
+                        mode: int = WINDOW_MEAN, b: int = 1) -> BackwardPlan:
     """The brick backward of `mode` over `extent` with one CTA per `brick`
     and `cvec` of the c/8 vectors. Every view gets a record slot. The box
     takes the shared memory that the CTAs the registers allow (or the grid
@@ -606,19 +613,34 @@ def plan_backward_brick(extent: Tuple[int, int, int], c: int, h: int, w: int,
     wait for each view's samples (PERF.md). The plan assumes the CTAs per
     SM that registers and the final shared memory allow. `box_px`
     overrides the box (0: every brick-view scatters straight into the
-    gradient). Refuses a brick whose records for every view do not fit one
-    CTA."""
+    gradient). A coordinate list (extent (N,), `brick` a run of rows
+    (run, 1, 1) of `b` batch elements; the variance only) keeps no box:
+    its rows need not be neighbours, so every brick-view scatters straight
+    into the gradient. Refuses a brick whose records for every view do not
+    fit one CTA."""
     nvec = c // 8
+    rows = len(extent) == 1
+    if rows and mode != VARIANCE:
+        raise ValueError("the window mean's backward takes a dense window, "
+                         "not a coordinate list")
+    if not rows and b != 1:
+        raise ValueError(f"a dense window's backward takes one batch element, "
+                         f"not {b}")
+    if rows and box_px:
+        raise ValueError("a coordinate list's backward keeps no box")
     if cvec < 1 or nvec % cvec:
         raise ValueError(f"{cvec} vectors per CTA do not divide {nvec}")
     bvox, grid = math.prod(brick), _grid(extent, brick) * (nvec // cvec)
     if bvox * cvec > MAX_THREADS:
         raise ValueError(f"brick {brick} x {cvec} vectors: more items than "
                          f"{MAX_THREADS} threads")
-    items, threads, by_regs = _brick_shape(bvox, cvec, grid, _backward_regs(mode))
-    fixed = _layout(backward_regions(v, bvox, cvec, 0))[-1]
+    items, threads, by_regs = _brick_shape(bvox, cvec, grid,
+                                           _backward_regs(mode, rows))
+    fixed = _layout(backward_regions(v, bvox, cvec, 0, b))[-1]
     if fixed > SMEM_MAX:
         raise ValueError(f"{v} views exceed shared memory")
+    if rows:
+        box_px = 0
     if box_px is None:
         def room(n):  # box pixels that n CTAs per SM leave
             budget = min(SMEM_PER_SM // n - 1024, SMEM_MAX) // SMEM_GRANULE * SMEM_GRANULE
@@ -628,14 +650,14 @@ def plan_backward_brick(extent: Tuple[int, int, int], c: int, h: int, w: int,
         while ctas > 1 and room(ctas) < min(BOX_MIN_PX, h * w):
             ctas -= 1
         box_px = min(room(ctas), BOX_MAX_PX[mode], h * w)
-    layout = _layout(backward_regions(v, bvox, cvec, box_px))
+    layout = _layout(backward_regions(v, bvox, cvec, box_px, b))
     if layout[-1] > SMEM_MAX:
         raise ValueError(f"a box of {box_px} pixels x {8 * cvec} channels "
                          "exceeds shared memory")
     # the CTAs the registers (or the grid) and the final shared memory allow
     return BackwardPlan(brick, grid, threads, items,
                         max(1, min(by_regs, _smem_ctas(layout[-1]))), layout,
-                        cvec=cvec, box_px=box_px)
+                        cvec=cvec, box_px=box_px, rows=rows)
 
 
 def tile_regions(h: int, w: int, cs: int):
@@ -700,9 +722,11 @@ def view_tile_plan(c: int, h: int, w: int, v: int) -> TilePlan:
 
 @functools.lru_cache(maxsize=None)
 def plan_backward(extent: Tuple[int, ...], c: int, h: int, w: int, v: int,
-                  mode: int = WINDOW_MEAN):
-    """The backward launch over a dense window (a coordinate list, whose
-    rows need not form bricks, has none: ValueError). It takes bricks of
+                  mode: int = WINDOW_MEAN, b: int = 1):
+    """The backward launch over a dense window (extent (X, Y, Z), one batch
+    element) or, for the variance, over a coordinate list of `b` batch
+    elements (extent (N,): runs of rows, `plan_backward_brick`, by the
+    rule below, never view tiles). It takes bricks of
     one (voxel, vector) item per thread: of every
     channel split and brick (`backward_brick_choices`), the one with the
     most threads per CTA, the widest split and then the largest brick
@@ -713,13 +737,14 @@ def plan_backward(extent: Tuple[int, ...], c: int, h: int, w: int, v: int,
     tiles (`view_tile_plan`) where one fits (a grid of bricks under two
     waves is bound by one CTA's chain of phases: PERF.md), and the
     variance the brick plan that fills the card most."""
-    if len(extent) != 3:
-        raise ValueError("the backward kernels take a dense window, not a "
-                         "coordinate list")
+    if len(extent) == 1 and mode != VARIANCE:
+        raise ValueError("the window mean's backward takes a dense window, "
+                         "not a coordinate list")
     nvec = c // 8
-    plans = [plan_backward_brick(extent, c, h, w, v, brick, cvec, mode=mode)
+    plans = [plan_backward_brick(extent, c, h, w, v, brick, cvec, mode=mode,
+                                 b=b)
              for cvec in range(1, nvec + 1) if nvec % cvec == 0
-             for brick in backward_brick_choices(extent, cvec, v, mode)]
+             for brick in backward_brick_choices(extent, cvec, v, mode, b)]
     waves = lambda p: p.grid / (p.ctas_per_sm * SM_COUNT)
     plan = max(plans, key=lambda p: (p.threads, p.cvec, math.prod(p.brick)),
                default=None)
@@ -749,7 +774,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.bp_forward.restype = ctypes.c_int
         lib.bp_occupancy.argtypes = [i, i, i, i, i, ctypes.POINTER(i)]
         lib.bp_occupancy.restype = ctypes.c_int
-        lib.bp_backward.argtypes = [p, p, p, p, p, i, i, i, i,
+        lib.bp_backward.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
                                     ctypes.c_longlong, i, i, i, i,
                                     ctypes.c_float, i, i, i, i, i, i,
                                     ctypes.POINTER(ctypes.c_longlong),
@@ -780,6 +805,12 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous() or t.data_ptr() % 16:
         raise ValueError(f"{name}: must be contiguous and 16-byte aligned")
+
+
+def launch_key(mode: int, n: int, c: int, rows: bool = False) -> tuple:
+    """A launch's key in launch_counts and backward_launch_counts: (mode,
+    rows or voxels, channels), with "rows" last for a coordinate list."""
+    return (mode, n, c, "rows") if rows else (mode, n, c)
 
 
 def _launch(mode: int, table: torch.Tensor, proj: torch.Tensor,
@@ -824,16 +855,18 @@ def _launch(mode: int, table: torch.Tensor, proj: torch.Tensor,
                         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"back_project kernel launch failed: CUDA error {rc}")
-    launch_counts[(mode, n, c)] += 1
+    launch_counts[launch_key(mode, n, c, coords is not None)] += 1
     return out, count
 
 
 def _launch_backward(mode: int, table: Optional[torch.Tensor],
                      proj: torch.Tensor, origin: torch.Tensor,
                      ct: torch.Tensor, count: torch.Tensor, v: int, h: int,
-                     w: int, dims: Sequence[int], interval: int = 1,
+                     w: int, dims: Optional[Sequence[int]], interval: int = 1,
                      voxel_size: float = 1.0,
-                     stats: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     stats: Optional[torch.Tensor] = None,
+                     coords: Optional[torch.Tensor] = None,
+                     valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The backward kernels: the table gradient [V, B*H*W, C] f32 given the
     cotangent ct [N, C] bf16 and the forward's count [N] f32, summed in
     fixed point (the library first reduces max |ct|, and max |table| for
@@ -841,7 +874,9 @@ def _launch_backward(mode: int, table: Optional[torch.Tensor],
     memory adds into an int64 scratch and converts it last). table: the
     bf16 [V, B*H*W, C] features (variance only; the mean does not read
     them); proj, origin as for `_launch`, over a dense window `dims` *
-    `interval` of one batch element (B = 1); stats: None, or int64 [3]
+    `interval` of one batch element (B = 1) or, the variance only, over
+    the coordinate list coords [N, 4] int32 with valid [N] uint8 (dims
+    None); stats: None, or int64 [3]
     that the kernel adds its tallies to: a brick plan its brick-views
     (summed per pixel in shared memory, scattered straight into the
     gradient, no voxel visible), a view-tile plan the visible (voxel,
@@ -859,12 +894,19 @@ def _launch_backward(mode: int, table: Optional[torch.Tensor],
     _check("origin", origin, torch.float32, (bb, 3), dev)
     if mode == VARIANCE:
         _check("table", table, torch.bfloat16, (v, bb * h * w, c), dev)
-    if bb != 1 or math.prod(dims) != n:
-        raise ValueError(f"a dense window {tuple(dims)} of one batch element "
-                         f"has {math.prod(dims)} rows, got {n} and {bb} batches")
+    if coords is None:
+        if bb != 1 or math.prod(dims) != n:
+            raise ValueError(f"a dense window {tuple(dims)} of one batch "
+                             f"element has {math.prod(dims)} rows, got {n} "
+                             f"and {bb} batches")
+        extent = tuple(dims)
+    else:
+        _check("coords", coords, torch.int32, (n, 4), dev)
+        _check("valid", valid, torch.uint8, (n,), dev)
+        extent, dims = (n,), (0, 0, 0)
     if stats is not None:
         _check("stats", stats, torch.int64, (3,), dev)
-    plan = plan_backward(tuple(dims), c, h, w, v, mode)
+    plan = plan_backward(extent, c, h, w, v, mode, bb)
     lib = _library()
     ptr = lambda t: None if t is None else t.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -886,15 +928,16 @@ def _launch_backward(mode: int, table: Optional[torch.Tensor],
     else:
         acc = torch.empty(grad.shape, dtype=torch.int64, device=dev)
         rc = lib.bp_backward(
-            proj.data_ptr(), origin.data_ptr(), ptr(table), ct.data_ptr(),
-            count.data_ptr(), v, h, w, c, n, *dims, interval,
-            float(voxel_size), mode, *plan.brick, plan.cvec, plan.threads,
+            proj.data_ptr(), origin.data_ptr(), ptr(coords), ptr(valid),
+            ptr(table), ct.data_ptr(), count.data_ptr(), v, bb, h, w, c, n,
+            *dims, interval, float(voxel_size), mode, *plan.brick, plan.cvec,
+            plan.threads,
             (ctypes.c_longlong * len(plan.layout))(*plan.layout),
             maxima.data_ptr(), acc.data_ptr(), grad.data_ptr(), ptr(stats),
             stream)
     if rc != 0:
         raise RuntimeError(f"back_project backward launch failed: CUDA error {rc}")
-    backward_launch_counts[(mode, n, c)] += 1
+    backward_launch_counts[launch_key(mode, n, c, coords is not None)] += 1
     return grad
 
 
@@ -924,7 +967,8 @@ def occupancy(plan, mode: int) -> int:
     takes the shared memory they leave)."""
     if isinstance(plan, TilePlan):
         return tile_occupancy(plan)[0]
-    kernel = 1 if isinstance(plan, BackwardPlan) else 0
+    kernel = ((3 if plan.rows else 1) if isinstance(plan, BackwardPlan)
+              else 0)
     return _occupancy(kernel, mode, plan.items, plan.threads, plan.smem_bytes)
 
 
@@ -1010,10 +1054,10 @@ def back_project_variance(coords: torch.Tensor, valid: torch.Tensor,
                           stats: Optional[torch.Tensor] = None):
     """Cross-view feature variance over visible views per voxel, the
     occupancy-init matching cost (port of back_project.py:215-249), with
-    the gradient for `feats` (`eprecon_tpu_torch::variance`) on the CPU:
-    on the card the forward runs the kernel over runs of rows and the
-    backward raises (the model's dense grid takes
-    `back_project_variance_window`, whose backward has a kernel).
+    the gradient for `feats` (`eprecon_tpu_torch::variance`): on the card
+    both directions run their kernels over runs of rows (the model's
+    dense grid takes `back_project_variance_window`, whose rows form 3-D
+    bricks).
 
     coords [K, 4] (b, x, y, z) fine units; valid [K] bool; origin [B, 3];
     feats [V, B, H, W, C]; proj [V, B, 4, 4]; stats: as for
@@ -1174,9 +1218,16 @@ def _variance_backward_op(feats: torch.Tensor, coords: torch.Tensor,
 
 @_variance_backward_op.register_kernel("cuda")
 def _(feats, coords, valid, origin, proj, count, ct, voxel_size):
-    raise RuntimeError("the variance over a coordinate list has no backward "
-                       "kernel on the card (its rows need not form bricks); "
-                       "back_project_variance_window takes a dense grid")
+    vv, bb, h, w, c = feats.shape
+    if feats.dtype != torch.bfloat16:
+        raise ValueError(f"variance kernel takes bf16 features, got {feats.dtype}")
+    return _launch_backward(
+        VARIANCE, feats.reshape(vv, bb * h * w, c).contiguous(),
+        proj.float().reshape(vv, bb, 16).contiguous(),
+        origin.float().reshape(bb, 3).contiguous(),
+        ct.to(torch.bfloat16).contiguous(), count.contiguous(), vv, h, w, None,
+        voxel_size=voxel_size, coords=coords.to(torch.int32).contiguous(),
+        valid=valid.to(torch.uint8).contiguous())
 
 
 @_variance_backward_op.register_fake

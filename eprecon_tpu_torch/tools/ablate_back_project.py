@@ -84,8 +84,8 @@ VARIANTS = {
                         "  return (long long)__float_as_int(term * scale);")],
     "no_box_flush": [("    for (int t0 = tid - lane; t0 < npx * cvec; t0 += nthr) {",
                       "    for (int t0 = tid - lane; t0 < 0; t0 += nthr) {")],
-    "no_direct": [("      warp_scatter8(grad, cv * kVec, uv >= 0,",
-                   "      warp_scatter8(grad, cv * kVec, uv >= 0 && kVec < 0,")],
+    "no_direct": [("      warp_scatter8(grad, item_off, uv >= 0,",
+                   "      warp_scatter8(grad, item_off, uv >= 0 && kVec < 0,")],
     "no_first_pass": [("      if (uv < 0) continue;\n      float s[kVec];\n"
                        "      sample8(view, l, uv,",
                        "      if (uv < 0 || kVec > 0) continue;\n      float s[kVec];\n"

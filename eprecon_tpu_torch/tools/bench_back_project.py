@@ -1,5 +1,6 @@
 """Time the back-projection kernels, forward and backward, at the four call
-shapes of a full-width fragment, on one NVIDIA GPU.
+shapes of a full-width fragment, and the occupancy init's grid passed as
+the JAX signature's coordinate list, on one NVIDIA GPU.
 
     python eprecon_tpu_torch/tools/bench_back_project.py [--root DIR] [--out FILE]
         [--shapes NAME ...]
@@ -18,12 +19,12 @@ record of every launch counts; `call_ms`, the wrapper's time per call
 (CUDA events around a run of Python calls); the plain PyTorch version's
 and an F.grid_sample yardstick's times (the backward's: autograd of the
 yardstick for the same cotangent); and `bound_ms`, the least time the
-card could take (for the variance also `bound_with_list_ms`, were its
-rows read as the JAX signature's coordinate list).
+card could take (the coordinate list's counts its rows' coordinates and
+valid flags too).
 `--root` names the checkout whose eprecon_tpu_torch is timed (default:
 the one holding this file), so that two versions of the kernel can be
 timed on one card: run this file as a script, once per root. `--shapes`
-times only the named shapes (default: all four). chip_smoke.py uses the
+times only the named shapes (default: all five). chip_smoke.py uses the
 same cases and also holds the kernel against the plain version.
 """
 from __future__ import annotations
@@ -53,6 +54,10 @@ SHAPES = [("occ_init_variance", (48, 48, 48), 2, 1, 60, 80, 32),
           ("stage0_window", (24, 24, 24), 4, 2, 30, 40, 80),
           ("stage1_window", (48, 48, 48), 2, 1, 60, 80, 40),
           ("stage2_window", (96, 96, 96), 1, 0, 120, 160, 24)]
+# the occupancy-init variance's rows passed as the JAX signature's
+# coordinate list (runs of rows both ways): a case of its own, after the
+# window's, on the same features and cotangent
+LIST_CASE = "occ_init_variance_list"
 
 
 def card_line() -> str:
@@ -85,15 +90,18 @@ class Case:
     backward_bytes: int = 0
     backward_ops: Tuple[int, int] = (0, 0)  # per visible pair x channel, per voxel x channel
     backward_exponent: Callable = None  # the plain version's fixed-point (e, nan)
-    list_bytes: int = 0  # a coordinate list of the same rows (not read by a window)
-    # the variance's forward over the same rows as the JAX signature's
-    # coordinate list (runs of rows, not bricks): run(**kw), plain()
-    list_run: Callable = None
-    list_plain: Callable = None
+    # the public function forward and torch.autograd.grad for the
+    # cotangent: the table's gradient as a user receives it (the
+    # coordinate list's path)
+    autograd: Callable = None
 
-    def bound(self, v: int, direction: str = "forward", extra_bytes: int = 0):
-        """(least ms, what bounds it): bytes (and `extra_bytes`) over 3.35
-        TB/s, f32 operations over 67 TFLOP/s, the larger."""
+    @property
+    def rows(self) -> bool:  # a coordinate list
+        return len(self.extent) == 1
+
+    def bound(self, v: int, direction: str = "forward"):
+        """(least ms, what bounds it): bytes over 3.35 TB/s, f32
+        operations over 67 TFLOP/s, the larger."""
         if direction == "forward":
             nbytes, per_vis, per_vox, proj = (self.bytes_, self.ops_per_visible,
                                               self.ops_per_voxel, 1)
@@ -103,7 +111,7 @@ class Case:
                                                 self.projections)
         ops = (proj * self.n * v * 22 + self.visible * self.c * per_vis
                + self.n * self.c * per_vox)
-        t_bytes = (nbytes + extra_bytes) / HBM_BYTES_PER_S * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / F32_OPS_PER_S * 1e3
         return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
@@ -132,7 +140,8 @@ def yardstick(feats_vchw, proj, world, h, w, variance):
 
 def cases(proj_matrices, vol_origin) -> List[Case]:
     """The four call shapes on random bf16 features (seed 0) and the
-    fragment's cameras."""
+    fragment's cameras, the variance's followed by its rows as a
+    coordinate list (LIST_CASE)."""
     import torch
     from eprecon_tpu_torch.ops import back_project as bp
     from eprecon_tpu_torch.ops.grid import dense_coords
@@ -164,36 +173,60 @@ def cases(proj_matrices, vol_origin) -> List[Case]:
         feats_f32 = feats[:, 0].permute(0, 3, 1, 2).float().contiguous()
         library = (lambda f=feats_f32, p=proj[:, 0].float(), wo=world, h=h, w=w,
                    var=variance: yardstick(f, p, wo, h, w, var))
-        case = Case(name, mode, dim, h, w, n, c, run, plain, library,
-                    v * h * w * c * 2 + v * 64 + 12 + n * c * 2 + n * 4,
-                    visible, *ops, 2 if variance else 1,
-                    list_bytes=n * 16 + n if variance else 0)
-        if variance:
-            coords = torch.cat([torch.zeros(n, 1, dtype=torch.int32, device=dev),
-                                grid.to(torch.int32)], 1)
-            listed = (coords, torch.ones(n, dtype=torch.bool, device=dev),
-                      origin, 0.04, feats, proj)
-            case.list_run = lambda a=listed, **kw: bp.back_project_variance(*a, **kw)
-            case.list_plain = lambda a=listed: bp.back_project_variance_plain(*a)
+        nbytes = v * h * w * c * 2 + v * 64 + 12 + n * c * 2 + n * 4
+        case = Case(name, mode, dim, h, w, n, c, run, plain, library, nbytes,
+                    visible, *ops, 2 if variance else 1)
         # the cotangent is drawn for every checkout, so that --root A/B runs
         # see the same features
         ct = torch.randn(n, c, device=dev, generator=gen).to(torch.bfloat16)
-        add_backward(case, feats, proj, origin, count, world, dim, interval,
-                     variance, ct)
+        add_backward(case, feats, proj, origin, count, world, dim, interval, ct)
         out.append(case)
+        if variance:
+            coords, valid = bp._window_rows(dim, interval, dev)
+            listed = (coords, valid, origin, 0.04, feats, proj)
+            case = dataclasses.replace(
+                case, name=LIST_CASE, extent=(n,),
+                run=lambda a=listed, **kw: bp.back_project_variance(*a, **kw),
+                plain=lambda a=listed: bp.back_project_variance_plain(*a),
+                bytes_=nbytes + n * 16 + n)
+            add_backward(case, feats, proj, origin, count, world, dim, interval,
+                         ct, coords, valid)
+            out.append(case)
     return out
 
 
 def add_backward(case: Case, feats, proj, origin, count, world, dim, interval,
-                 variance, ct):
+                 ct, coords=None, valid=None):
     """The backward kernel, its plain version and the yardstick's autograd
-    for the bf16 cotangent ct, and the backward's bytes and operations."""
+    for the bf16 cotangent ct, and the backward's bytes and operations;
+    for the variance's coordinate list (coords, valid) also the public
+    function through autograd."""
     import torch
     from eprecon_tpu_torch.ops import back_project as bp
 
     v, h, w, n, c = proj.shape[0], case.h, case.w, case.n, case.c
+    variance = case.mode == bp.VARIANCE
     proj16 = proj.float().reshape(v, 1, 16).contiguous()
-    if variance:
+    if coords is not None:
+        case.backward = functools.partial(
+            bp._launch_backward, bp.VARIANCE, feats.reshape(v, h * w, c),
+            proj16, origin, ct, count, v, h, w, None, 1, 0.04,
+            coords=coords, valid=valid.to(torch.uint8))
+        case.backward_plain = functools.partial(
+            bp.variance_backward_plain, coords, valid, origin, 0.04, feats,
+            proj, count, ct)
+
+        def through_autograd():
+            f = feats.detach().requires_grad_(True)
+            out, _ = bp.back_project_variance(coords, valid, origin, 0.04, f,
+                                              proj)
+            return torch.autograd.grad(out, f, ct)[0]
+
+        case.autograd = through_autograd
+        # ct, count, the table, the rows' coordinates and valid flags
+        nbytes = n * c * 2 + n * 4 + v * h * w * c * 2 + n * 16 + n
+        case.backward_ops = (28, 6)
+    elif variance:
         case.backward = functools.partial(
             bp._launch_backward, bp.VARIANCE, feats.reshape(v, h * w, c),
             proj16, origin, ct, count, v, h, w, dim, interval, 0.04)
@@ -303,14 +336,10 @@ def time_case(case: Case, v: int, direction: str = "forward") -> dict:
         else (case.backward, case.backward_plain, case.backward_library,
               BACKWARD_KERNEL))
     ms, windows, parts = device_ms(run, iters, kernel)
-    # the bound were the rows read as a coordinate list ([N, 4] int32 and
-    # an [N] mask), as the JAX signature passes them
-    extra = (dict(bound_with_list_ms=case.bound(v, direction, case.list_bytes)[0])
-             if case.list_bytes else {})
     return dict(ms=ms, profiler_windows=windows, parts=parts,
                 call_ms=cuda_ms(run, iters),
                 plain_ms=cuda_ms(plain, max(3, iters // 5)),
-                bound_ms=bound, bound_by=bound_by, **extra,
+                bound_ms=bound, bound_by=bound_by,
                 library_ms=cuda_ms(library, max(3, iters // 5)))
 
 
@@ -320,7 +349,8 @@ def main() -> int:
                     default=Path(__file__).resolve().parents[2],
                     help="checkout whose eprecon_tpu_torch is timed")
     ap.add_argument("--out", type=Path, help="also write the results here")
-    ap.add_argument("--shapes", nargs="+", choices=[s[0] for s in SHAPES],
+    ap.add_argument("--shapes", nargs="+",
+                    choices=[s[0] for s in SHAPES] + [LIST_CASE],
                     help="time only these shapes")
     args = ap.parse_args()
     import torch

@@ -21,9 +21,9 @@ runner resumes it.
 
 The recipe is the JAX package's: 3 train + 3 held-out scenes of 96 frames
 and 2 rooms, lr 1e-3, accumulation 1, occ_init_threshold 0.05,
-global_extent_auto, save every 5 epochs, 2 decode threads. Its
-`model.remat_mode full` is a JAX-only key the port ignores, so it is not
-passed.
+global_extent_auto, save every 5 epochs, 2 decode threads, and
+`model.remat_mode full` (the backward recomputes the backbones and every
+3-D module; the results are those of any other mode).
 """
 from __future__ import annotations
 
@@ -104,7 +104,7 @@ class Run:
                 "train.epochs", self.epochs, "train.lr", "1e-3",
                 "train.accumulation_steps", 1, "model.occ_init_threshold", 0.05,
                 "train.n_workers", 2, "save_freq", 5,
-                "model.global_extent_auto", "true"]
+                "model.global_extent_auto", "true", "model.remat_mode", "full"]
         rc = self._cli(*args, *self.resume())
         restarts = 0
         while rc == RSS_RESTART_EXIT_CODE and restarts < MAX_RESTARTS:

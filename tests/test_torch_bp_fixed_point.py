@@ -91,6 +91,31 @@ def test_variance_gradient_is_independent_of_row_order(scene, seed):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("seed", [3, 4])
+def test_window_rows_as_a_list_give_the_window_gradient(scene, seed):
+    """A dense window's rows passed as a coordinate list, in a permuted
+    order, give the window variance's plain gradient bit for bit: the
+    coordinate-list backward kernel, whose integer atomics add in any
+    order, is held to the same bits as the window's bricks."""
+    proj, origin = (torch.from_numpy(x) for x in scene)
+    dim, c = (10, 9, 8), 16
+    rng = np.random.default_rng(seed)
+    feats = torch.from_numpy(rng.standard_normal((5, 1, H, W, c))).to(torch.bfloat16)
+    ct = torch.from_numpy(rng.standard_normal((math.prod(dim), c))).to(torch.bfloat16)
+    count = tbp.back_project_variance_window_plain(dim, 2, origin, 0.1, feats,
+                                                   proj)[1]
+    want = tbp.variance_window_backward_plain(dim, 2, origin, 0.1, feats, proj,
+                                              count, ct)
+    coords, valid = tbp._window_rows(dim, 2, "cpu")
+    assert torch.equal(coords[:, 1:].reshape(*dim, 3),
+                       tbp.dense_coords(dim, "cpu").int() * 2)
+    perm = torch.from_numpy(rng.permutation(len(coords)))
+    got = tbp.variance_backward_plain(coords[perm], valid[perm], origin, 0.1,
+                                      feats, proj, count[perm], ct[perm])
+    assert (count >= 2).any() and (count == 0).any() and want.abs().max() > 0
+    assert torch.equal(got, want)
+
+
 def test_window_gradient_is_independent_of_voxel_order(scene):
     """The window mean's gradient, each view's voxels scattered in reverse
     order through the plain scatter, is bitwise the plain backward's."""

@@ -6,7 +6,8 @@ share an SM fit in it; the backward's channel splits cover the channels and
 its int64 box holds the boxes it takes, whose sums (the kernel's word
 arithmetic and index arithmetic, emulated) give the plain backward's bits;
 the view tiles cover every (view, channel, visible record) once, in one
-wave of clusters.
+wave of clusters; a coordinate list's backward takes runs of rows, of any
+batch elements, with no box.
 
 The tiling below is the kernels' own index arithmetic (csrc/back_project.cu):
 brick c of a window is (c // (gy*gz), c // gz % gy, c % gz) and slot l of a
@@ -158,40 +159,45 @@ def test_plan_refuses_what_shared_memory_cannot_hold():
 
 def _bwd(shape):
     extent, c, h, w, b, mode = shape
-    return bp.plan_backward(extent, c, h, w, V, mode)
+    return bp.plan_backward(extent, c, h, w, V, mode, b)
 
 
 def _backward_plans(name):
-    """A window's brick plan for every channel split (the largest brick
-    each allows), and the plan the backward takes (view tiles for a window
-    mean whose bricks cannot pay); none for a coordinate list, whose
-    backward has no plan (it raises)."""
+    """A window's brick plan (a coordinate list's run plan) for every
+    channel split (the largest brick or run each allows), and the plan the
+    backward takes (view tiles for a window mean whose bricks cannot
+    pay)."""
     extent, c, h, w, b, mode = ALL[name]
-    if len(extent) == 1:
-        with pytest.raises(ValueError, match="dense window"):
-            _bwd(ALL[name])
-        return []
     nvec = c // 8
     plans = [
-        bp.plan_backward_brick(extent, c, h, w, V, choices[0], cvec, mode=mode)
+        bp.plan_backward_brick(extent, c, h, w, V, choices[0], cvec, mode=mode,
+                               b=b)
         for cvec in range(1, nvec + 1) if nvec % cvec == 0
-        for choices in [bp.backward_brick_choices(extent, cvec, V, mode)]
+        for choices in [bp.backward_brick_choices(extent, cvec, V, mode, b)]
         if choices]
     return plans + [_bwd(ALL[name])]
 
 
 @pytest.mark.parametrize("name", list(ALL))
 def test_backward_takes_bricks_only_where_they_can_pay(name):
-    """Coordinate lists (the variance's JAX signature) have no backward
-    plan: their rows need not form bricks, and the kernel wrapper raises;
-    window means whose bricks cannot fill two waves of the card (stage 0
-    and the small ones) take view tiles; the stage 1 and 2 windows and
-    every variance window take bricks."""
+    """Coordinate lists (the variance's JAX signature) take runs of rows
+    with no box (their rows need not be neighbours), never view tiles, and
+    the window mean has no list backward; window means whose bricks cannot
+    fill two waves of the card (stage 0 and the small ones) take view
+    tiles; the stage 1 and 2 windows and every variance window take
+    bricks."""
     extent, c, h, w, b, mode = ALL[name]
     if len(extent) == 1:
-        assert mode == bp.VARIANCE and _backward_plans(name) == []
+        assert mode == bp.VARIANCE
+        for plan in _backward_plans(name):
+            assert isinstance(plan, bp.BackwardPlan)
+            assert plan.rows and plan.box_px == 0 and plan.brick[1:] == (1, 1)
+            assert plan.brick[0] in bp.RUNS
+        with pytest.raises(ValueError, match="dense window"):
+            bp.plan_backward(extent, c, h, w, V, bp.WINDOW_MEAN, b)
         return
     plan = _bwd(ALL[name])
+    assert not plan.rows if isinstance(plan, bp.BackwardPlan) else True
     if isinstance(plan, bp.TilePlan):
         assert mode == bp.WINDOW_MEAN
         assert plan == bp.view_tile_plan(c, h, w, V)
@@ -239,17 +245,21 @@ def test_backward_layout_and_resources(name):
             _check_tile_resources(plan, h, w)
             continue
         bvox = math.prod(plan.brick)
-        sizes = bp.backward_regions(V, bvox, plan.cvec, plan.box_px)
+        sizes = bp.backward_regions(V, bvox, plan.cvec, plan.box_px, b)
         _check_layout(plan.layout, sizes)
         assert plan.layout[-1] - plan.layout[-2] == bp._align16(
             plan.box_px * (plan.cvec * 8 + 1) * 8)
-        assert 0 < plan.box_px <= h * w  # never above an image
-        assert min(bp.BOX_MIN_PX, h * w) <= plan.box_px <= bp.BOX_MAX_PX[mode]
+        if plan.rows:  # a coordinate list keeps no box
+            assert plan.box_px == 0
+        else:
+            assert 0 < plan.box_px <= h * w  # never above an image
+            assert min(bp.BOX_MIN_PX, h * w) <= plan.box_px <= bp.BOX_MAX_PX[mode]
         allocated = -(-plan.smem_bytes // 128) * 128
         assert 0 < plan.smem_bytes <= 227 * 1024
         assert plan.ctas_per_sm >= 1
         assert plan.ctas_per_sm * (allocated + 1024) <= 228 * 1024
-        regs = bp.BWD_REGS_PER_THREAD[mode]
+        regs = (bp.LIST_BWD_REGS_PER_THREAD if plan.rows
+                else bp.BWD_REGS_PER_THREAD[mode])
         assert plan.ctas_per_sm * plan.threads // 32 <= 4 * (16384 // (regs * 32))
         assert plan.threads % 32 == 0 and 32 <= plan.threads <= bp.MAX_THREADS
         assert plan.items == 1 and plan.threads >= bvox * plan.cvec
@@ -285,8 +295,9 @@ def test_plans_assume_the_ctas_the_card_holds(name):
 
 def test_register_table_covers_every_kernel_instance():
     """The plans model the registers of exactly the instances the library
-    launches (csrc/back_project.cu pick, pick_backward, pick_tile and the
-    visible-records pass), and nothing of a per-voxel backward is left."""
+    launches (csrc/back_project.cu pick, pick_backward: the two windows'
+    and the coordinate list's, pick_tile and the visible-records pass),
+    and nothing of a per-voxel backward is left."""
     src = (Path(bp.__file__).resolve().parents[1] / "csrc" / "back_project.cu").read_text()
     modes = {"false": bp.WINDOW_MEAN, "true": bp.VARIANCE}
     fwd = {(modes[m], int(k)) for k, m in
@@ -294,8 +305,12 @@ def test_register_table_covers_every_kernel_instance():
     assert fwd == set(bp.REGS_PER_THREAD)
     assert {m: max(k for mm, k in fwd if mm == m) for m in modes.values()} == bp.MAX_ITEMS
     bwd = {modes[m] for m in re.findall(
-        r"return back_project_backward_kernel<(true|false)>;", src)}
+        r"return back_project_backward_kernel<(true|false), false>;", src)}
     assert bwd == set(bp.BWD_REGS_PER_THREAD) == set(modes.values())
+    # the coordinate list's: the variance alone, one instance
+    assert re.findall(r"back_project_backward_kernel<(true|false), true>", src) == ["true"]
+    assert isinstance(bp.LIST_BWD_REGS_PER_THREAD, int)
+    assert bp.LIST_BWD_REGS_PER_THREAD % 8 == 0
     tiles = {int(k) for k in re.findall(r"return back_project_backward_tile<(\d+)>;", src)}
     assert tiles == set(bp.TILE_REGS_PER_THREAD)
     # one instance, no template: the table holds a number
@@ -787,8 +802,9 @@ def test_variance_takes_bricks_at_the_path_shape():
     of one item per thread (the variance's instance), a channel split that
     divides its 4 vectors, CTAs per SM from the variance's registers and
     the shared memory of its records and box, a box of BOX_MIN_PX to
-    BOX_MAX_PX pixels, and a grid of two waves; as a coordinate list it
-    has no backward plan."""
+    BOX_MAX_PX pixels, and a grid of two waves; as a coordinate list, runs
+    of rows of one item per thread, the whole 256 threads, no box, CTAs
+    per SM from the list instance's registers, and two waves too."""
     extent, c, h, w, b, mode = PATH["occ_init_variance"]
     plan = _bwd(PATH["occ_init_variance"])
     assert isinstance(plan, bp.BackwardPlan)
@@ -799,8 +815,49 @@ def test_variance_takes_bricks_at_the_path_shape():
         bp._resident(plan.threads, bp.BWD_REGS_PER_THREAD[bp.VARIANCE]),
         bp._smem_ctas(plan.smem_bytes))
     assert plan.grid >= bp.MIN_WAVES * plan.ctas_per_sm * bp.SM_COUNT
-    with pytest.raises(ValueError, match="dense window"):
-        bp.plan_backward((math.prod(extent),), c, h, w, V, mode)
+    rows = bp.plan_backward((math.prod(extent),), c, h, w, V, mode)
+    _check_list_plan(rows, math.prod(extent), c, 1)
+    assert rows.threads == bp.MAX_THREADS
+    assert rows.grid >= bp.MIN_WAVES * rows.ctas_per_sm * bp.SM_COUNT
+
+
+def _check_list_plan(plan, n, c, b):
+    """A coordinate list's backward plan: a run of RUNS rows per CTA and
+    channel split, one (row, vector) item per thread, no box, the shared
+    memory of the records and the projections of `b` batch elements, and
+    as many CTAs per SM as the list instance's registers (or the grid)
+    and that memory allow."""
+    assert isinstance(plan, bp.BackwardPlan) and plan.rows
+    run, splits = plan.brick[0], c // 8 // plan.cvec
+    assert plan.brick == (run, 1, 1) and run in bp.RUNS
+    assert plan.grid == -(-n // run) * splits
+    assert plan.items == 1 and run * plan.cvec <= plan.threads < run * plan.cvec + 32
+    assert plan.box_px == 0
+    _check_layout(plan.layout, bp.backward_regions(V, run, plan.cvec, 0, b))
+    assert plan.ctas_per_sm == max(1, min(
+        bp._resident(plan.threads, bp.LIST_BWD_REGS_PER_THREAD),
+        -(-plan.grid // bp.SM_COUNT), bp._smem_ctas(plan.smem_bytes)))
+
+
+@pytest.mark.parametrize("name", ["occ_init_rows", "rows_two_batches", "few_rows"])
+def test_list_backward_takes_runs_of_rows(name):
+    """The variance's backward over a coordinate list of one or two batch
+    elements: runs of rows (`_check_list_plan`), the plan with the most
+    threads, then the widest split, then the longest run, where it fills
+    MIN_WAVES waves of the card, else the one that fills the most; the
+    projections' region grows with the batch elements."""
+    extent, c, h, w, b, mode = ALL[name]
+    plan = _bwd(ALL[name])
+    _check_list_plan(plan, extent[0], c, b)
+    waves = lambda p: p.grid / (p.ctas_per_sm * bp.SM_COUNT)
+    others = _backward_plans(name)[:-1]
+    if waves(plan) >= bp.MIN_WAVES:
+        assert all((p.threads, p.cvec, p.brick[0]) <= (plan.threads, plan.cvec, plan.brick[0])
+                   for p in others)
+    else:
+        assert all(waves(p) <= waves(plan) for p in others)
+    one = bp.backward_regions(V, plan.brick[0], plan.cvec, 0, 1)["proj"]
+    assert bp.backward_regions(V, plan.brick[0], plan.cvec, 0, b)["proj"] == b * one
 
 
 def test_ablation_variants_find_their_source_text():

@@ -178,16 +178,16 @@ PATH_SHAPES = [((110592,), 32, 60, 80, bp.VARIANCE),
 @pytest.mark.parametrize("extent,c,h,w,mode", PATH_SHAPES)
 def test_card_holds_the_ctas_the_plan_assumes(cuda, extent, c, h, w, mode):
     """At the main path's four call shapes (and the occupancy init's grid
-    as the JAX signature's coordinate list, forward only: its backward has
-    no kernel) the occupancy calculator, on the built kernels, fits as
-    many CTAs per SM as the plans assume, forward and backward (the plans
-    model each instance's registers; a brick backward cuts shared memory
-    for that many)."""
+    as the JAX signature's coordinate list, runs of rows both ways) the
+    occupancy calculator, on the built kernels, fits as many CTAs per SM
+    as the plans assume, forward and backward (the plans model each
+    instance's registers; a brick backward cuts shared memory for that
+    many)."""
     plan = bp.plan_launch(extent, c, 9, 1, mode)
     assert bp.occupancy(plan, mode) == plan.ctas_per_sm
-    if len(extent) == 1:
-        return
     plan = bp.plan_backward(extent, c, h, w, 9, mode)
+    if len(extent) == 1:  # the coordinate list's own instance
+        assert plan.rows
     assert bp.occupancy(plan, mode) == plan.ctas_per_sm
     if isinstance(plan, bp.TilePlan):  # stage 0: its clusters in one wave
         assert bp.tile_occupancy(plan)[1] >= plan.tiles
@@ -252,29 +252,103 @@ def test_window_backward_kernel(cuda, dim, interval, voxel, c):
     _equal(got.reshape(want.shape), want)
 
 
-def test_coordinate_list_backward_raises_on_the_card(cuda):
-    """The variance over a coordinate list (the JAX signature) runs its
-    forward kernel on the card, but its backward has no kernel: autograd
-    raises, and launches nothing, rather than falling back to the plain
-    version."""
-    rng = np.random.default_rng(5)
-    h, w, c = 15, 20, 8
-    feats = torch.from_numpy(rng.standard_normal((4, 2, h, w, c))).to(torch.bfloat16)
+def _list_case(cuda, c=8, seed=5):
+    """The variance over a coordinate list of two batch elements (batch
+    1's rows in reverse order), 20% of the rows invalid, and view 3 facing
+    away from the grid in both (it sees nothing): the public function's
+    inputs, and a cotangent."""
+    rng = np.random.default_rng(seed)
+    h, w = 15, 20
+    feats = torch.from_numpy(rng.standard_normal((4, 2, h, w, c))).to(
+        torch.bfloat16).to(cuda)
     xyz = np.stack(np.meshgrid(*[np.arange(0, 14, 2)] * 3, indexing="ij"),
                    -1).reshape(-1, 3)
     coords = torch.from_numpy(np.concatenate([
-        np.concatenate([np.full((len(xyz), 1), b), xyz], 1)
+        np.concatenate([np.full((len(xyz), 1), b), xyz[::-1] if b else xyz], 1)
         for b in (0, 1)]).astype(np.int32)).to(cuda)
-    valid = torch.ones(coords.shape[0], dtype=torch.bool, device=cuda)
+    valid = torch.from_numpy(rng.uniform(size=coords.shape[0]) > 0.2).to(cuda)
     origin = torch.tensor([[0.002, 0.001, 0.003], [0.011, 0.004, 0.002]]).to(cuda)
-    proj = _proj(4, h, w, batch=2).to(cuda)
-    f = feats.to(cuda).requires_grad_(True)
+    proj = _proj(4, h, w, batch=2)
+    proj[3, :, 2] = -proj[3, :, 2]  # every voxel behind view 3's camera
+    ct = torch.from_numpy(rng.standard_normal((coords.shape[0], c))).to(
+        torch.bfloat16).to(cuda)
+    return (coords, valid, origin, 0.05, feats, proj.to(cuda)), ct
+
+
+@pytest.mark.parametrize("c", [8, 32])
+def test_coordinate_list_backward_kernel_bitwise(cuda, c):
+    """The variance over a coordinate list (the JAX signature), B = 2 with
+    invalid rows and a view that sees nothing, through
+    torch.autograd.grad: one forward and one backward launch, the plain
+    backward's gradient bit for bit (in the features' bf16), the f32
+    table gradient equal to the plain version's, and repeats equal to the
+    first; every brick-view scatters straight into the gradient (no box)."""
+    args, ct = _list_case(cuda, c)
+    coords, valid, origin, voxel, feats, proj = args
+    f = feats.clone().requires_grad_(True)
     before = (bp.total_launches(), bp.total_backward_launches())
-    var, _ = bp.back_project_variance(coords, valid, origin, 0.05, f, proj)
-    with pytest.raises(RuntimeError, match="no backward kernel"):
-        torch.autograd.grad(var, f, torch.ones_like(var))
+    var, count = bp.back_project_variance(coords, valid, origin, voxel, f, proj)
+    (got,) = torch.autograd.grad(var, f, ct)
+    torch.cuda.synchronize()
     assert (bp.total_launches(), bp.total_backward_launches()) == (
-        before[0] + 1, before[1])
+        before[0] + 1, before[1] + 1)
+    want = bp.variance_backward_plain(coords, valid, origin, voxel, feats, proj,
+                                      count, ct)
+    assert (count[~valid] == 0).all() and (count[valid] >= 2).any()
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, want.to(torch.bfloat16).reshape(got.shape))
+    v, b, h, w, _ = feats.shape
+    run = lambda **kw: bp._launch_backward(
+        bp.VARIANCE, feats.reshape(v, b * h * w, c), proj.reshape(v, b, 16),
+        origin, ct, count, v, h, w, None, voxel_size=voxel, coords=coords,
+        valid=valid.to(torch.uint8), **kw)
+    stats = torch.zeros(3, dtype=torch.int64, device=cuda)
+    first = run(stats=stats)
+    torch.cuda.synchronize()
+    _equal(first, want)
+    plan = bp.plan_backward((coords.shape[0],), c, h, w, v, bp.VARIANCE, b)
+    in_box, direct, empty = stats.tolist()
+    assert in_box == 0 and direct > 0 and empty >= plan.grid
+    assert in_box + direct + empty == plan.grid * v
+    assert want[3].abs().max() == 0  # the blind view
+    for _ in range(3):
+        assert torch.equal(run(), first)
+
+
+def test_coordinate_list_backward_every_run_and_split(cuda, monkeypatch):
+    """Every run of rows and channel split the list backward's plan may
+    take equals the plain backward bit for bit."""
+    args, ct = _list_case(cuda, 32, seed=6)
+    coords, valid, origin, voxel, feats, proj = args
+    count = bp.back_project_variance_plain(*args)[1]
+    want = bp.variance_backward_plain(*args, count, ct)
+    v, b, h, w, c = feats.shape
+    n = coords.shape[0]
+    for cvec in (1, 2, 4):
+        for run in bp.backward_brick_choices((n,), cvec, v, bp.VARIANCE, b):
+            plan = bp.plan_backward_brick((n,), c, h, w, v, run, cvec,
+                                          mode=bp.VARIANCE, b=b)
+            monkeypatch.setattr(bp, "plan_backward", lambda *_, plan=plan: plan)
+            got = bp._launch_backward(
+                bp.VARIANCE, feats.reshape(v, b * h * w, c),
+                proj.reshape(v, b, 16), origin, ct, count, v, h, w, None,
+                voxel_size=voxel, coords=coords, valid=valid.to(torch.uint8))
+            torch.cuda.synchronize()
+            _equal(got, want)
+
+
+def test_coordinate_list_backward_non_finite_cotangent_is_nan(cuda):
+    """A non-finite cotangent entry makes the list backward's whole
+    gradient NaN, as in the plain version and the windows' kernels."""
+    args, ct = _list_case(cuda, 32, seed=7)
+    count = bp.back_project_variance_plain(*args)[1]
+    ct[11, 5] = float("inf")
+    f = args[4].clone().requires_grad_(True)
+    var, _ = bp.back_project_variance(*args[:4], f, args[5])
+    (got,) = torch.autograd.grad(var, f, ct)
+    want = bp.variance_backward_plain(*args, count, ct)
+    torch.cuda.synchronize()
+    assert torch.isnan(got).all() and torch.isnan(want).all()
 
 
 def _variance_window_case(cuda, dim=(12, 12, 12), c=32, h=15, w=20, depth=1.2,
@@ -542,11 +616,12 @@ def test_tile_backward_writes_every_entry(cuda):
 
 
 @pytest.mark.parametrize("name", ["occ_init_variance", "stage0_window",
-                                  "stage1_window", "stage2_window"])
+                                  "stage1_window", "stage2_window",
+                                  "occ_init_variance_list"])
 def test_backward_kernel_path_shapes(cuda, name):
-    """The four call shapes of a full-width fragment
-    (tools/bench_back_project.py): kernel vs plain backward, bit for
-    bit."""
+    """The four call shapes of a full-width fragment, and the occupancy
+    init's grid as a coordinate list (tools/bench_back_project.py): kernel
+    vs plain backward, bit for bit."""
     from eprecon_tpu_torch.data.synthetic import make_fragment
     from eprecon_tpu_torch.tools import bench_back_project as bench
 
@@ -562,12 +637,14 @@ def test_backward_kernel_path_shapes(cuda, name):
     plan = bp.plan_backward(case.extent, case.c, case.h, case.w, 9, case.mode)
     if isinstance(plan, bp.TilePlan):  # stage 0: every visible pair once
         assert stats.tolist() == [case.visible, 0, 0]
-    else:  # bricks, the variance's too: a tally per (CTA, view)
-        assert stats[0] > 0 and int(stats.sum()) == plan.grid * 9
+    else:  # bricks, the variance's too, or runs: a tally per (CTA, view)
+        assert (stats[0] == 0 if plan.rows else stats[0] > 0)
+        assert int(stats.sum()) == plan.grid * 9
 
 
 @pytest.mark.parametrize("name", ["occ_init_variance", "stage0_window",
-                                  "stage1_window", "stage2_window"])
+                                  "stage1_window", "stage2_window",
+                                  "occ_init_variance_list"])
 def test_backward_kernel_repeats_bit_for_bit(cuda, name):
     """Repeats of the backward on the same inputs at the four call shapes
     give the same bits: the atomics' order changes from call to call, the
@@ -588,7 +665,7 @@ def test_backward_kernel_repeats_bit_for_bit(cuda, name):
 
 
 @pytest.mark.parametrize("name", ["occ_init_variance", "stage0_window",
-                                  "stage2_window"])
+                                  "stage2_window", "occ_init_variance_list"])
 def test_backward_kernel_non_finite_cotangent_is_nan(cuda, name):
     """A non-finite cotangent entry makes the whole gradient NaN, in the
     kernels (every design) as in the plain version."""
